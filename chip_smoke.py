@@ -2,7 +2,7 @@
 then the pipeline's main path end to end on the card.
 
     python3 chip_smoke.py                # every phase (one CUDA card)
-    python3 chip_smoke.py --kernels-only # phases 1-3: build + kernel checks
+    python3 chip_smoke.py --kernels-only # phases 1-3b: build + kernel checks
     python3 chip_smoke.py --profile DIR  # + phase 5, written to DIR
 
 Phases (any failure exits non-zero; no phase catches its own failure):
@@ -12,19 +12,37 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      the frontend's shape (64 rendered images of 376x1241), on 4 of them
      and at an odd size, with stated tolerances, then the median time of
      20 runs of each at the frontend's shape;
+  2b. kernels B4 (harris_response) and B3 (orientation_maps), B1's phases
+     alone, against their plain versions with B1's tolerances: B4 at the
+     frontend's shape, B3 at both AKAZE octave shapes, (64, 376, 1241) and
+     (64, 188, 621), and at (2, 100, 333); median times;
+  2c. kernel B5 (akaze_octave) against its plain version at both octave
+     shapes, on the AKAZE path's own inputs (blurred rendered frames,
+     their per-frame contrast k), and at (2, 47, 156), KITTI's octave 3,
+     where the halo is a large share of the image and the wrap matters;
+     median times;
   3. kernel B2 (mutual_nearest) against its plain version on the card at
      every call the main path makes: (32, 2048, 128) with the stereo and
      the temporal window of SlamConfig().matching, and loop verification's
      (SPEC_Q * max_candidates = 60, 2048, 128) float16 batch without a
      window; also without a window at (32, 2048, 128) and a ragged
      (3, 1500, 128) x (3, 1777, 128); then median times;
+  3b. kernel B2 on the Hamming calls: +-1 signs of binarized descriptors
+     under the stereo and the temporal window; every index equal to the
+     lowest-index argmin, ties included; median times;
   4. main path: run_pipeline + evaluate on an 80-frame 376x1241 loop
      scene (157 m, 8000 landmarks) on the card, with both kernels'
      launch counters checked and every stage's ATE under 1 m;
-  5. with --profile DIR: one more warm main-path run under
-     torch.profiler; wall time, device busy time (union of the device
-     events' intervals) and idle share of that one run, per stage and in
-     all, and device time by kernel, into DIR/profile.json.
+  4b. the AKAZE path: the same, under SlamConfig(features=
+     FeatureConfig(detector="akaze"), matching=MatchConfig(norm=
+     "hamming")), with B5, B3 and B2 launched and no plain version run;
+  4c. multiscale Harris: run_frontend under FeatureConfig(num_levels=2),
+     B1 launched at both level shapes, frontend ATE under 1 m;
+  5. with --profile DIR: one more warm run of the main path, and one of
+     the AKAZE path, under torch.profiler; wall time, device busy time
+     (union of the device events' intervals) and idle share of that one
+     run, per stage and in all, and device time by kernel, into
+     DIR/profile.json and DIR/profile_akaze.json.
 The second line from the end is the kernels' JSON record (after a full
 run only), the last line the device record. Nothing here imports JAX.
 """
@@ -75,6 +93,30 @@ def median_ms(fn, runs: int = TIMING_RUNS) -> float:
     return float(np.median(times))
 
 
+def nms_mismatches(n_k, n_p, r_p, r_scale, label: str) -> int:
+    """Pixels where the kernel's and the plain version's NMS keep/suppress
+    decisions differ; fails unless each is a near-tie (the response within
+    1e-6 of max |resp| of its 5x5 window's runner-up, the center itself
+    excluded), and unless the kept values agree within 1e-5 of it."""
+    keep_k, keep_p = torch.isfinite(n_k), torch.isfinite(n_p)
+    mism = keep_k != keep_p
+    if mism.any():
+        pad = torch.nn.functional.pad(r_p[:, None], (2, 2, 2, 2),
+                                      value=-float("inf"))
+        win = pad.unfold(2, 5, 1).unfold(3, 5, 1).reshape(*r_p.shape, 25)
+        win = win.clone()
+        win[..., 12] = -float("inf")
+        runner = win.max(dim=-1).values
+        tie = (r_p - runner).abs() <= 1e-6 * r_scale
+        if (mism & ~tie).any():
+            fail(f"{label}: {int((mism & ~tie).sum())} NMS decisions "
+                 f"differ away from ties")
+    both = keep_k & keep_p
+    if float((n_k[both] - n_p[both]).abs().max()) > 1e-5 * r_scale:
+        fail(f"{label}: nms values differ")
+    return int(mism.sum())
+
+
 def check_b1(ck, frames: torch.Tensor, label: str) -> float:
     """Kernel B1 vs its plain version on ``frames``; returns max abs err.
 
@@ -98,28 +140,80 @@ def check_b1(ck, frames: torch.Tensor, label: str) -> float:
         fail(f"B1 {label}: resp err {r_err} > 1e-5 * {r_scale}")
     if m_bad > 1e-3:
         fail(f"B1 {label}: {m_bad:.2e} of maps beyond 1e-5 * {m_scale}")
-    keep_k, keep_p = torch.isfinite(n_k), torch.isfinite(n_p)
-    mism = keep_k != keep_p
-    if mism.any():
-        # runner-up of each 5x5 window (the center itself excluded)
-        pad = torch.nn.functional.pad(r_p[:, None], (2, 2, 2, 2),
-                                      value=-float("inf"))
-        win = pad.unfold(2, 5, 1).unfold(3, 5, 1).reshape(*r_p.shape, 25)
-        win = win.clone()
-        win[..., 12] = -float("inf")
-        runner = win.max(dim=-1).values
-        tie = (r_p - runner).abs() <= 1e-6 * r_scale
-        if (mism & ~tie).any():
-            fail(f"B1 {label}: {int((mism & ~tie).sum())} NMS decisions "
-                 f"differ away from ties")
-    both = keep_k & keep_p
-    if float((n_k[both] - n_p[both]).abs().max()) > 1e-5 * r_scale:
-        fail(f"B1 {label}: nms values differ")
+    n_mism = nms_mismatches(n_k, n_p, r_p, r_scale, f"B1 {label}")
     log(f"[B1] {label} {tuple(frames.shape)}: resp err {r_err:.3e} "
         f"(scale {r_scale:.3e}), maps max err {float(m_diff.max()):.3e} "
         f"(scale {m_scale:.3e}, share beyond tol {m_bad:.2e}), "
-        f"nms mismatches {int(mism.sum())}")
+        f"nms mismatches {n_mism}")
     return max(r_err, float(m_diff.max()))
+
+
+def check_b4(ck, frames: torch.Tensor, label: str) -> float:
+    """Kernel B4 (B1's Harris phase) vs its plain version, with B1's
+    tolerances: resp within 1e-5 of max |resp|, the NMS -inf pattern equal
+    except at near-ties. Returns max abs err."""
+    r_k, n_k = ck.harris_response(frames)
+    r_p, n_p = ck.harris_response_plain(frames)
+    sync(frames)
+    if not torch.isfinite(r_k).all():
+        fail(f"B4 {label}: non-finite resp")
+    r_scale = float(r_p.abs().max())
+    r_err = float((r_k - r_p).abs().max())
+    if r_err > 1e-5 * r_scale:
+        fail(f"B4 {label}: resp err {r_err} > 1e-5 * {r_scale}")
+    n_mism = nms_mismatches(n_k, n_p, r_p, r_scale, f"B4 {label}")
+    log(f"[B4] {label} {tuple(frames.shape)}: resp err {r_err:.3e} "
+        f"(scale {r_scale:.3e}), nms mismatches {n_mism}")
+    return r_err
+
+
+def check_b3(ck, frames: torch.Tensor, label: str) -> float:
+    """Kernel B3 (B1's orientation phase) vs its plain version, with B1's
+    tolerances: maps within 1e-5 of max |maps| for all but 0.1% of values
+    (8-bin boundary flips). Returns max abs err."""
+    m_k = ck.orientation_maps(frames)
+    m_p = ck.orientation_maps_plain(frames)
+    sync(frames)
+    if not torch.isfinite(m_k).all():
+        fail(f"B3 {label}: non-finite maps")
+    m_scale = float(m_p.abs().max())
+    m_diff = (m_k - m_p).abs()
+    m_bad = float((m_diff > 1e-5 * m_scale).float().mean())
+    if m_bad > 1e-3:
+        fail(f"B3 {label}: {m_bad:.2e} of maps beyond 1e-5 * {m_scale}")
+    log(f"[B3] {label} {tuple(frames.shape)}: maps max err "
+        f"{float(m_diff.max()):.3e} (scale {m_scale:.3e}, share beyond tol "
+        f"{m_bad:.2e})")
+    return float(m_diff.max())
+
+
+def check_b5(ck, imgs: torch.Tensor, k: torch.Tensor, sigma: float,
+             label: str):
+    """Kernel B5 vs its plain version on the same images and contrasts.
+
+    Tolerances: L within 1e-5 of max |L| (six diffusion steps, each
+    rounding in another order, with FMA contraction); resp within 1e-4 of
+    max |resp| (second differences of L cancel up to ~10x of L's error);
+    the NMS -inf pattern equal except at near-ties. Returns (max abs err,
+    the plain version's L, for the next octave)."""
+    L_k, r_k, n_k = ck.akaze_octave(imgs, k, 6, sigma=sigma)
+    L_p, r_p, n_p = ck.akaze_octave_plain(imgs, k, 6, sigma=sigma)
+    sync(imgs)
+    for name, t_ in (("L", L_k), ("resp", r_k)):
+        if not torch.isfinite(t_).all():
+            fail(f"B5 {label}: non-finite {name}")
+    L_scale, r_scale = float(L_p.abs().max()), float(r_p.abs().max())
+    L_err = float((L_k - L_p).abs().max())
+    r_err = float((r_k - r_p).abs().max())
+    if L_err > 1e-5 * L_scale:
+        fail(f"B5 {label}: L err {L_err} > 1e-5 * {L_scale}")
+    if r_err > 1e-4 * r_scale:
+        fail(f"B5 {label}: resp err {r_err} > 1e-4 * {r_scale}")
+    n_mism = nms_mismatches(n_k, n_p, r_p, r_scale, f"B5 {label}")
+    log(f"[B5] {label} {tuple(imgs.shape)}: L err {L_err:.3e} (scale "
+        f"{L_scale:.3e}), resp err {r_err:.3e} (scale {r_scale:.3e}), nms "
+        f"mismatches {n_mism}")
+    return max(L_err, r_err), L_p
 
 
 STEREO_SHIFT = ((-100.0, -2.0), (-1.5, 1.5))
@@ -185,6 +279,51 @@ def check_b2(ck, inputs, window, label: str) -> float:
     return err
 
 
+def lowest_argmin(d: torch.Tensor, dim: int) -> torch.Tensor:
+    """The lowest index attaining the minimum along ``dim``, computed
+    explicitly (whatever torch.min returns on ties)."""
+    m = d.min(dim=dim, keepdim=True).values
+    idx = torch.arange(d.shape[dim], device=d.device)
+    shape = [1] * d.dim()
+    shape[dim] = -1
+    return torch.where(d == m, idx.view(shape), d.shape[dim]).min(dim=dim)[0]
+
+
+def check_b2_hamming(ck, binary, inputs, window, label: str):
+    """Kernel B2 on +-1 signs vs its plain distance matrix: distances are
+    exact integers in both, so distances equal exactly and every row and
+    column index equals the lowest-index argmin, ties included. Returns
+    (max abs distance err, tied rows and columns)."""
+    a, b, va, vb, xa, xb = inputs
+    rd, ri, cd, ci = ck.mutual_nearest(a, b, va, vb, xa, xb, window)
+    sync(a)
+    base = ck.window_distances(a, b, xa, xb, window)
+    d_row = base + torch.where(vb, 0.0, ck.BIG)[:, None, :]
+    d_col = base + torch.where(va, 0.0, ck.BIG)[:, :, None]
+    err = max(float((rd - d_row.min(dim=2).values).abs().max()),
+              float((cd - d_col.min(dim=1).values).abs().max()))
+    if err != 0.0:
+        fail(f"B2 hamming {label}: distance err {err} != 0")
+    n_tied = 0
+    for d, got, dim in ((d_row, ri, 2), (d_col, ci, 1)):
+        want = lowest_argmin(d, dim)
+        if not torch.equal(got, want):
+            fail(f"B2 hamming {label}: {int((got != want).sum())} indices "
+                 f"differ from the lowest-index argmin")
+        m = d.min(dim=dim, keepdim=True).values
+        n_tied += int(((d == m).sum(dim=dim) > 1).sum())
+    D = a.shape[-1]
+    m = binary.hamming_mutual_match(a, b, va, vb, max_hamming=40, xy_a=xa,
+                                    xy_b=xb, window=window)
+    sync(a)
+    log(f"[B2] hamming {label} {tuple(a.shape)} x {tuple(b.shape)}: "
+        f"distances exact, all {ri.numel() + ci.numel()} indices equal to "
+        f"the lowest-index argmin ({n_tied} tied rows and columns); "
+        f"{int(m['matched'].sum())} matches under the gate "
+        f"{binary.base_gate_from_hamming(40, D)} (40 bits)")
+    return err, n_tied
+
+
 def _merge(iv):
     """Union of [start, end) intervals, sorted and merged."""
     out = []
@@ -201,14 +340,15 @@ def _covered(merged, lo, hi) -> float:
     return sum(max(0.0, min(b, hi) - max(a, lo)) for a, b in merged)
 
 
-def profile_path(pipeline, L, R, calib, cfg, out_dir, card) -> None:
-    """One more warm run of the main path under torch.profiler. From that
+def profile_path(pipeline, L, R, calib, cfg, out_dir, card,
+                 tag: str = "") -> None:
+    """One more warm run of a path under torch.profiler. From that
     run alone: its wall time, the device's busy time (the union of the
     device events' intervals, so overlapping kernels count once), the
     idle share, the same per pipeline stage (device busy inside the
     stage's host span), and device time by kernel name. Host overhead of
     the profiler lengthens this run, so its idle share is an upper bound
-    for an unprofiled run. Written to out_dir/profile.json."""
+    for an unprofiled run. Written to out_dir/profile{tag}.json."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -257,34 +397,85 @@ def profile_path(pipeline, L, R, calib, cfg, out_dir, card) -> None:
     }
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "profile.json").write_text(json.dumps(report, indent=1))
-    log(f"[profile] one profiled run: wall {wall_s:.3f} s, device busy "
+    path = out / f"profile{tag}.json"
+    path.write_text(json.dumps(report, indent=1))
+    log(f"[profile{tag}] one profiled run: wall {wall_s:.3f} s, device busy "
         f"{busy_us * 1e-6:.4f} s over {len(dev)} device events, idle share "
         f"{report['idle_share']:.3f} ({card})")
     for name, st in stages.items():
-        log(f"[profile] stage {name}: host {st['host_s']:.3f} s, device busy "
-            f"{st['device_busy_s']:.4f} s, idle share {st['idle_share']:.3f}")
+        log(f"[profile{tag}] stage {name}: host {st['host_s']:.3f} s, "
+            f"device busy {st['device_busy_s']:.4f} s, idle share "
+            f"{st['idle_share']:.3f}")
     for n, (c, us) in top[:12]:
-        log(f"[profile] {us * 1e-3:9.3f} ms  x{c:<6d} {n[:90]}")
-    log(f"[profile] written to {out / 'profile.json'}")
+        log(f"[profile{tag}] {us * 1e-3:9.3f} ms  x{c:<6d} {n[:90]}")
+    log(f"[profile{tag}] written to {path}")
+
+
+def drive_path(pipeline, ck, L, R, scene, cfg, required, tag, card):
+    """run_pipeline + evaluate under ``cfg`` on the card: a warm-up pass
+    (cuDNN / cuBLAS / cuSOLVER handles, allocator), then the measured pass
+    with the launch counters zeroed just before it and read just after.
+    Fails unless every kernel in ``required`` launched, no plain version
+    ran, the trajectory is finite, at least one loop closed and every
+    stage's ATE is under 1 m. Returns the measured pass's launches."""
+    pipeline.run_pipeline(L, R, scene.calib, cfg, verbose=False,
+                          device="cuda")
+    torch.cuda.synchronize()
+    ck.reset_counters()
+    t0 = time.perf_counter()
+    res = pipeline.run_pipeline(L, R, scene.calib, cfg, verbose=False,
+                                device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    plain = dict(ck.PLAIN_CALLS)
+    report = pipeline.evaluate(res, scene.T_w2c)
+    if any(launches[k] == 0 for k in required):
+        fail(f"{tag}: a kernel of the path was not launched: {launches}")
+    if any(plain.values()):
+        fail(f"{tag}: a plain version ran during the CUDA path: {plain}")
+    n_frames = L.shape[0]
+    if res.T_frontend.shape != (n_frames, 4, 4) or not np.isfinite(
+            res.T_frontend).all():
+        fail(f"{tag}: frontend trajectory malformed")
+    ates = {k: report[k]["ate_rmse_m"]
+            for k in ("frontend", "bundles_kf", "pose_graph_kf",
+                      "pose_graph_lc_kf") if k in report}
+    for k, v in ates.items():
+        if not (np.isfinite(v) and v < 1.0):
+            fail(f"{tag}: ATE {k} = {v} m (limit 1.0 m)")
+    if report["num_closures"] < 1:
+        fail(f"{tag}: no loop closure found on the loop scene")
+    t = res.timings
+    log(f"[{tag}] {n_frames} frames {HW}: wall {wall:.2f} s, stages "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in t.items())
+        + f"; frontend {n_frames / t['frontend']:.1f} frames/s ({card})")
+    log(f"[{tag}] closures "
+        f"{[(c.frame_i, c.frame_j, c.num_inliers) for c in res.closures]}"
+        f"; ATE m {json.dumps(ates)}; pose failures "
+        f"{report['num_pose_failures']}; launches {launches} ({card})")
+    return launches
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after the kernel checks (phases 1-3)")
+                    help="stop after the kernel checks (phases 1-3b)")
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="after the main path, profile one more run of it "
-                         "and write DIR/profile.json (phase 5)")
+                    help="after the paths, profile one more run of the main "
+                         "path and of the AKAZE path and write "
+                         "DIR/profile.json, DIR/profile_akaze.json (phase 5)")
     args = ap.parse_args(argv)
 
     # ---- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
         return 1
-    from slam_tpu.config import SlamConfig
+    from slam_tpu.config import FeatureConfig, MatchConfig, SlamConfig
+    from slam_tpu.utils import metrics
     from slam_tpu_torch import pipeline
     from slam_tpu_torch.models import frontend, loop_closure
+    from slam_tpu_torch.ops import akaze, binary, features
     from slam_tpu_torch.ops import cuda_kernels as ck
     from slam_tpu_torch.utils import synthetic
 
@@ -328,7 +519,52 @@ def main(argv=None) -> int:
     b1_plain_ms = median_ms(lambda: ck.detect_maps_plain(path))
     log(f"[B1] {tuple(path.shape)} median of {TIMING_RUNS}: kernel "
         f"{b1_ms:.3f} ms, plain {b1_plain_ms:.3f} ms ({card})")
-    del path
+
+    # ---- 2b. kernels B4 and B3 ---------------------------------------------
+    # B4 has no caller in the pipeline: its launch count is this phase's
+    ck.reset_counters()
+    b4_err = check_b4(ck, path, "frontend chunk")
+    b4_launches = ck.LAUNCHES["harris_response"]
+    b4_ms = median_ms(lambda: ck.harris_response(path))
+    b4_plain_ms = median_ms(lambda: ck.harris_response_plain(path))
+    log(f"[B4] {tuple(path.shape)} median of {TIMING_RUNS}: kernel "
+        f"{b4_ms:.3f} ms, plain {b4_plain_ms:.3f} ms ({card})")
+    # B3 runs on AKAZE's diffused octaves: the blurred chunk at octave 0,
+    # its 2x downsample at octave 1
+    oct0 = features.gaussian_blur(path, 1.0, 2)
+    oct1 = features.downsample2(oct0)
+    b3_err = max(check_b3(ck, oct0, "octave 0"),
+                 check_b3(ck, oct1, "octave 1"),
+                 check_b3(ck, odd, "odd"))
+    b3_times = {}
+    for label, x in (("octave 0", oct0), ("octave 1", oct1)):
+        b3_times[label] = (median_ms(lambda: ck.orientation_maps(x)),
+                           median_ms(lambda: ck.orientation_maps_plain(x)))
+        log(f"[B3] {label} {tuple(x.shape)} median of {TIMING_RUNS}: kernel "
+            f"{b3_times[label][0]:.3f} ms, plain {b3_times[label][1]:.3f} "
+            f"ms ({card})")
+
+    # ---- 2c. kernel B5 ------------------------------------------------------
+    # the AKAZE path's own inputs: per-frame contrast of the chunk, octave 0
+    # on the blurred chunk, octave 1 on the 2x downsample of its diffusion
+    k = akaze._contrast_k(path)
+    b5_err, L0 = check_b5(ck, oct0, k, 1.6, "octave 0")
+    oct1 = features.downsample2(L0)
+    b5_err = max(b5_err, check_b5(ck, oct1, k, 3.2, "octave 1")[0])
+    small = path[:2]
+    for _ in range(3):
+        small = features.downsample2(small)
+    b5_err = max(b5_err, check_b5(ck, small, k[:2], 12.8,
+                                  "KITTI octave 3")[0])
+    b5_times = {}
+    for label, x, sigma in (("octave 0", oct0, 1.6), ("octave 1", oct1, 3.2)):
+        b5_times[label] = (
+            median_ms(lambda: ck.akaze_octave(x, k, 6, sigma=sigma)),
+            median_ms(lambda: ck.akaze_octave_plain(x, k, 6, sigma=sigma)))
+        log(f"[B5] {label} {tuple(x.shape)} median of {TIMING_RUNS}: kernel "
+            f"{b5_times[label][0]:.3f} ms, plain {b5_times[label][1]:.3f} "
+            f"ms ({card})")
+    del path, oct0, oct1, L0
 
     # ---- 3. kernel B2 -------------------------------------------------------
     # every call of the main path: the frontend's stereo and temporal
@@ -358,8 +594,25 @@ def main(argv=None) -> int:
             f"window {win} median of {TIMING_RUNS}: kernel "
             f"{b2_times[label][0]:.3f} ms, plain {b2_times[label][1]:.3f} "
             f"ms ({card})")
-    del stereo, temporal, verify
     b2_ms, b2_plain_ms = b2_times["stereo"]
+
+    # ---- 3b. kernel B2 on the Hamming calls ---------------------------------
+    # the AKAZE path's matching: binarized descriptors (+-1 signs) under
+    # the stereo and the temporal window; integer distances tie often
+    def signs(inputs):
+        return tuple(binary.binarize_descriptors(x).contiguous()
+                     if i < 2 else x for i, x in enumerate(inputs))
+
+    hamming = {"stereo": (signs(stereo), stereo_win),
+               "temporal": (signs(temporal), temporal_win)}
+    for label, (inputs, win) in hamming.items():
+        check_b2_hamming(ck, binary, inputs, win, f"{label} window")
+    for label, (inputs, win) in hamming.items():
+        t_k = median_ms(lambda: ck.mutual_nearest(*inputs, window=win))
+        t_p = median_ms(lambda: ck.mutual_nearest_plain(*inputs, window=win))
+        log(f"[B2] hamming {label} median of {TIMING_RUNS}: kernel "
+            f"{t_k:.3f} ms, plain {t_p:.3f} ms ({card})")
+    del stereo, temporal, verify, hamming
 
     kernels = [
         {"name": "detect_maps", "route": "cuda",
@@ -370,6 +623,20 @@ def main(argv=None) -> int:
          "source": "slam_tpu_torch/csrc/mutual_nearest.cu",
          "replaces": "slam_tpu/ops/pallas_kernels.py:105",
          "max_abs_err": b2_err, "ms": b2_ms, "plain_ms": b2_plain_ms},
+        {"name": "orientation_maps", "route": "cuda",
+         "source": "slam_tpu_torch/csrc/detect_maps.cu",
+         "replaces": "slam_tpu/ops/pallas_kernels.py:461",
+         "max_abs_err": b3_err, "ms": b3_times["octave 0"][0],
+         "plain_ms": b3_times["octave 0"][1]},
+        {"name": "harris_response", "route": "cuda",
+         "source": "slam_tpu_torch/csrc/detect_maps.cu",
+         "replaces": "slam_tpu/ops/pallas_kernels.py:294",
+         "max_abs_err": b4_err, "ms": b4_ms, "plain_ms": b4_plain_ms},
+        {"name": "akaze_octave", "route": "cuda",
+         "source": "slam_tpu_torch/csrc/akaze_octave.cu",
+         "replaces": "slam_tpu/ops/pallas_kernels.py:785",
+         "max_abs_err": b5_err, "ms": b5_times["octave 0"][0],
+         "plain_ms": b5_times["octave 0"][1]},
     ]
     if args.kernels_only:
         # no main-path run, so no launch counts to report
@@ -377,54 +644,68 @@ def main(argv=None) -> int:
         return 0
 
     # ---- 4. main path -------------------------------------------------------
-    T_gt = scene.T_w2c
-    # the default SlamConfig(); a warm-up pass (cuDNN / cuBLAS / cuSOLVER
-    # handles, allocator), then the measured pass with the counters
-    # zeroed just before it
-    pipeline.run_pipeline(L, R, scene.calib, cfg, verbose=False,
-                          device="cuda")
-    torch.cuda.synchronize()
-    ck.reset_counters()
-    t0 = time.perf_counter()
-    res = pipeline.run_pipeline(L, R, scene.calib, cfg, verbose=False,
-                                device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(ck.LAUNCHES)
-    plain = dict(ck.PLAIN_CALLS)
-    report = pipeline.evaluate(res, T_gt)
-    if launches["detect_maps"] == 0 or launches["mutual_nearest"] == 0:
-        fail(f"a kernel of the path was not launched: {launches}")
-    if any(plain.values()):
-        fail(f"a plain version ran during the CUDA main path: {plain}")
-    n_frames = L.shape[0]
-    if res.T_frontend.shape != (n_frames, 4, 4) or not np.isfinite(
-            res.T_frontend).all():
-        fail("frontend trajectory malformed")
-    ates = {k: report[k]["ate_rmse_m"]
-            for k in ("frontend", "bundles_kf", "pose_graph_kf",
-                      "pose_graph_lc_kf") if k in report}
-    for k, v in ates.items():
-        if not (np.isfinite(v) and v < 1.0):
-            fail(f"ATE {k} = {v} m (limit 1.0 m)")
-    if report["num_closures"] < 1:
-        fail("no loop closure found on the loop scene")
-    t = res.timings
-    log(f"[path] {n_frames} frames {HW}: wall {wall:.2f} s, stages "
-        + ", ".join(f"{k} {v:.3f} s" for k, v in t.items())
-        + f"; frontend {n_frames / t['frontend']:.1f} frames/s ({card})")
-    log(f"[path] closures {[(c.frame_i, c.frame_j, c.num_inliers) for c in res.closures]}"
-        f"; ATE m {json.dumps(ates)}; pose failures "
-        f"{report['num_pose_failures']}; launches {launches} ({card})")
+    # the default SlamConfig()
+    launches = drive_path(pipeline, ck, L, R, scene, cfg,
+                          ("detect_maps", "mutual_nearest"), "path", card)
+
+    # ---- 4b. the AKAZE path -------------------------------------------------
+    cfg_akaze = SlamConfig(features=FeatureConfig(detector="akaze"),
+                           matching=MatchConfig(norm="hamming"))
+    launches_akaze = drive_path(
+        pipeline, ck, L, R, scene, cfg_akaze,
+        ("akaze_octave", "orientation_maps", "mutual_nearest"),
+        "path akaze", card)
+
+    # ---- 4c. multiscale Harris ----------------------------------------------
+    # B1 at every pyramid level; the level shapes are recorded through the
+    # wrapper, which features looks up at each call
+    cfg_ms = SlamConfig(features=FeatureConfig(num_levels=2))
+    shapes = set()
+    detect_maps = ck.detect_maps
+
+    def recording(imgs, *a, **kw):
+        shapes.add(tuple(imgs.shape))
+        return detect_maps(imgs, *a, **kw)
+
+    ck.detect_maps = recording
+    try:
+        frontend.run_frontend(L, R, scene.calib, cfg_ms, device="cuda")
+        torch.cuda.synchronize()
+        shapes.clear()
+        ck.reset_counters()
+        t0 = time.perf_counter()
+        fr = frontend.run_frontend(L, R, scene.calib, cfg_ms, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ck.detect_maps = detect_maps
+    want = {(2 * chunk, HW[0], HW[1]),
+            (2 * chunk, (HW[0] + 1) // 2, (HW[1] + 1) // 2)}
+    if shapes != want or any(ck.PLAIN_CALLS.values()):
+        fail(f"multiscale Harris: B1 at shapes {shapes} (want {want}), "
+             f"plain calls {ck.PLAIN_CALLS}")
+    ate = metrics.trajectory_summary(fr.T_w2c, scene.T_w2c)["ate_rmse_m"]
+    if not (np.isfinite(fr.T_w2c).all() and ate < 1.0):
+        fail(f"multiscale Harris: frontend ATE {ate} m (limit 1.0 m)")
+    log(f"[path multiscale] num_levels=2, {L.shape[0]} frames {HW}: "
+        f"frontend {wall:.3f} s, {L.shape[0] / wall:.1f} frames/s, ATE "
+        f"{ate:.4f} m, pose failures {fr.num_pose_failures}; B1 shapes "
+        f"{sorted(shapes)}, launches {dict(ck.LAUNCHES)} ({card})")
 
     # ---- 5. profile (optional) ---------------------------------------------
     if args.profile:
         profile_path(pipeline, L, R, scene.calib, cfg, args.profile, card)
+        profile_path(pipeline, L, R, scene.calib, cfg_akaze, args.profile,
+                     card, "_akaze")
 
     if "jax" in sys.modules:
         fail("JAX was imported")
+    # each kernel's launches in the path that runs it; B4's in phase 2b
+    counts = dict(launches, orientation_maps=launches_akaze[
+        "orientation_maps"], akaze_octave=launches_akaze["akaze_octave"],
+        harris_response=b4_launches)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = counts[k["name"]]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

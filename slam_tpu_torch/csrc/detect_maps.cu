@@ -1,8 +1,12 @@
-// Kernel B1: fused detection maps for the Harris detector.
+// Kernels B1, B3 and B4: the Harris and descriptor maps of the detectors.
 //
-// Replaces the TPU kernel slam_tpu/ops/pallas_kernels.py:detect_maps_batch
-// (body _detect_maps_kernel). One pass over each image computes the ten
-// per-pixel channels the detector needs:
+// Replaces three TPU kernels of slam_tpu/ops/pallas_kernels.py, all built
+// there from the same stage bodies, and here from one template
+// maps_kernel<HARRIS, ORIENT>:
+//   B1 detect_maps_batch           (_detect_maps_kernel): both phases;
+//   B4 harris_response_batch       (_harris_kernel):      Harris phase only;
+//   B3 orientation_cell_maps_batch (_orient_kernel):      orientation only.
+// The phases compute, per pixel:
 //   resp  Harris response: Sobel gradients, Gaussian (sigma 1.5, r 2)
 //         structure tensor, det - k tr^2;
 //   nms   resp where it is the max of its 5x5 window, -inf elsewhere;
@@ -16,19 +20,21 @@
 // where the TPU kernel's zero canvas differed within 4-6 px of the edge.
 //
 // What bounds it on the H100: device memory. Each pixel is read once
-// (plus a 5-px halo) and ten float32 channels are written: at the
-// frontend's shape, 64 images of 376x1241, that is ~1.2 GB of writes per
-// chunk against ~0.12 GB of reads, ~0.4 ms at 3.35 TB/s. The arithmetic
-// (~200 flops per pixel) is far below the card's float32 rate.
+// (plus a 5-px halo) and up to ten float32 channels are written: for B1
+// at the frontend's shape, 64 images of 376x1241, that is ~1.2 GB of
+// writes per chunk against ~0.12 GB of reads, ~0.4 ms at 3.35 TB/s. The
+// arithmetic (~200 flops per pixel) is far below the card's float32 rate.
 //
 // Design: one CTA per (image, 32x32 output tile), 256 threads. The
 // image tile with its 5-px halo is staged once in shared memory; every
 // stage (Sobel, separable blurs, NMS max, atan2 binning, separable box
 // sums) runs out of shared memory, so intermediates never touch device
-// memory; the only global traffic is the halo'd input read and the ten
-// coalesced output rows per tile row. Shared memory is one 42 KB buffer
-// whose Harris-phase regions are reused by the orientation phase.
-// atan2f replaces the polynomial the TPU needed (Mosaic had no atan2).
+// memory; the only global traffic is the halo'd input read and the
+// coalesced output rows of each channel. Shared memory is one buffer
+// sized for the phases the variant runs (42 KB with the Harris phase,
+// 38 KB for the orientation phase alone); with both, the Harris regions
+// are reused by the orientation phase. atan2f replaces the polynomial the
+// TPU needed (Mosaic had no atan2).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -52,15 +58,16 @@ constexpr int OFF_HXX = OFF_GY + G * G;          // G x S (row blurs)
 constexpr int OFF_HYY = OFF_HXX + G * S;
 constexpr int OFF_HXY = OFF_HYY + G * S;
 constexpr int OFF_RESP = OFF_HXY + G * S;        // S x S response
-constexpr int SMEM_FLOATS = OFF_RESP + S * S;    // 10580 floats
-// orientation phase (reuses everything after the image region):
+constexpr int HARRIS_FLOATS = OFF_RESP + S * S;  // 10580 floats
+// orientation phase (after the image region; reuses the Harris regions):
 constexpr int OFF_BH = OFF_IMG + R * R;          // R x OH row blur
 constexpr int OFF_BV = OFF_BH + R * OH;          // OH x OH blur
 constexpr int OFF_M0 = OFF_BV + OH * OH;         // OC x OC weight, bin b0
 constexpr int OFF_M1 = OFF_M0 + OC * OC;         // OC x OC weight, bin b0+1
 constexpr int OFF_B0 = OFF_M1 + OC * OC;         // OC x OC bin index
 constexpr int OFF_VBOX = OFF_B0 + OC * OC;       // TILE x OC column sums
-static_assert(OFF_VBOX + TILE * OC <= SMEM_FLOATS, "orientation layout");
+constexpr int ORIENT_FLOATS = OFF_VBOX + TILE * OC;  // 9599 floats
+static_assert(ORIENT_FLOATS <= HARRIS_FLOATS, "orientation layout");
 
 struct Taps {
   float h[5];  // Gaussian sigma 1.5 (structure tensor)
@@ -71,27 +78,13 @@ __device__ __forceinline__ bool inside(int y, int x, int H, int W) {
   return y >= 0 && y < H && x >= 0 && x < W;
 }
 
-__global__ void __launch_bounds__(NT)
-detect_maps_kernel(const float* __restrict__ img, float* __restrict__ resp,
-                   float* __restrict__ nms, float* __restrict__ maps,
-                   int H, int W, float k, Taps taps) {
-  __shared__ float buf[SMEM_FLOATS];
-  const int f = blockIdx.z;
-  const int y0 = blockIdx.y * TILE;
-  const int x0 = blockIdx.x * TILE;
+// Harris phase: resp and nms of the tile from the staged image region.
+__device__ __forceinline__ void harris_phase(
+    float* buf, const float* s_img, float* __restrict__ resp,
+    float* __restrict__ nms, int f, int y0, int x0, int H, int W, float k,
+    const Taps& taps) {
   const int tid = threadIdx.x;
   const size_t plane = (size_t)H * W;
-  const float* im = img + f * plane;
-
-  // image region: (i, j) <-> image (y0 - 5 + i, x0 - 5 + j), zero outside
-  float* s_img = buf + OFF_IMG;
-  for (int idx = tid; idx < R * R; idx += NT) {
-    const int y = y0 - HALO + idx / R, x = x0 - HALO + idx % R;
-    s_img[idx] = inside(y, x, H, W) ? im[(size_t)y * W + x] : 0.f;
-  }
-  __syncthreads();
-
-  // ---- Harris branch ------------------------------------------------------
   // gradients: (p, q) <-> image (y0 - 4 + p, x0 - 4 + q), zero outside
   float* s_gx = buf + OFF_GX;
   float* s_gy = buf + OFF_GY;
@@ -162,9 +155,14 @@ detect_maps_kernel(const float* __restrict__ img, float* __restrict__ resp,
     resp[f * plane + (size_t)y * W + x] = c;
     nms[f * plane + (size_t)y * W + x] = c >= m ? c : -INFINITY;
   }
-  __syncthreads();  // the orientation phase reuses the Harris regions
+}
 
-  // ---- orientation branch -------------------------------------------------
+// Orientation phase: the 8 maps of the tile from the staged image region.
+__device__ __forceinline__ void orient_phase(
+    float* buf, const float* s_img, float* __restrict__ maps, int f, int y0,
+    int x0, int H, int W, const Taps& taps) {
+  const int tid = threadIdx.x;
+  const size_t plane = (size_t)H * W;
   // row blur: (i, q) <-> image row y0 - 5 + i, col x0 - 3 + q
   float* s_bh = buf + OFF_BH;
   for (int idx = tid; idx < R * OH; idx += NT) {
@@ -242,24 +240,84 @@ detect_maps_kernel(const float* __restrict__ img, float* __restrict__ resp,
   }
 }
 
+template <bool HARRIS, bool ORIENT>
+__global__ void __launch_bounds__(NT)
+maps_kernel(const float* __restrict__ img, float* __restrict__ resp,
+            float* __restrict__ nms, float* __restrict__ maps, int H, int W,
+            float k, Taps taps) {
+  static_assert(HARRIS || ORIENT, "a variant runs at least one phase");
+  __shared__ float buf[HARRIS ? HARRIS_FLOATS : ORIENT_FLOATS];
+  const int f = blockIdx.z;
+  const int y0 = blockIdx.y * TILE;
+  const int x0 = blockIdx.x * TILE;
+  const int tid = threadIdx.x;
+  const float* im = img + f * (size_t)H * W;
+
+  // image region: (i, j) <-> image (y0 - 5 + i, x0 - 5 + j), zero outside
+  float* s_img = buf + OFF_IMG;
+  for (int idx = tid; idx < R * R; idx += NT) {
+    const int y = y0 - HALO + idx / R, x = x0 - HALO + idx % R;
+    s_img[idx] = inside(y, x, H, W) ? im[(size_t)y * W + x] : 0.f;
+  }
+  __syncthreads();
+
+  if constexpr (HARRIS) harris_phase(buf, s_img, resp, nms, f, y0, x0, H, W,
+                                     k, taps);
+  if constexpr (HARRIS && ORIENT)
+    __syncthreads();  // the orientation phase reuses the Harris regions
+  if constexpr (ORIENT) orient_phase(buf, s_img, maps, f, y0, x0, H, W, taps);
+}
+
+Taps make_taps(const float* taps_h, const float* taps_o) {
+  Taps taps;
+  for (int t = 0; t < 5; ++t) {
+    taps.h[t] = taps_h ? taps_h[t] : 0.f;
+    taps.o[t] = taps_o ? taps_o[t] : 0.f;
+  }
+  return taps;
+}
+
+template <bool HARRIS, bool ORIENT>
+int launch(const float* img, float* resp, float* nms, float* maps, int F,
+           int H, int W, float k, const float* taps_h, const float* taps_o,
+           void* stream) {
+  if (F <= 0 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, F);
+  maps_kernel<HARRIS, ORIENT><<<grid, NT, 0, (cudaStream_t)stream>>>(
+      img, resp, nms, maps, H, W, k, make_taps(taps_h, taps_o));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). img (F, H, W) float32 in;
-// resp, nms (F, H, W) and maps (F, 8, H, W) float32 out, all contiguous on
-// the current device. taps_h / taps_o: 5 host floats each. Launches on
-// `stream` and returns the launch's cudaError_t (0 on success).
+// Plain C entry points (loaded with ctypes). Every tensor is float32,
+// contiguous, on the current device: img (F, H, W) in; resp, nms
+// (F, H, W) and maps (F, 8, H, W) out. taps_h / taps_o: 5 host floats
+// each (the Gaussian taps of the structure tensor and of the orientation
+// blur). Each launches on `stream` and returns the launch's cudaError_t
+// (0 on success).
+
+// B1: both phases.
 extern "C" int slam_detect_maps(const float* img, float* resp, float* nms,
                                 float* maps, int F, int H, int W, float k,
                                 const float* taps_h, const float* taps_o,
                                 void* stream) {
-  if (F <= 0 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
-  Taps taps;
-  for (int t = 0; t < 5; ++t) {
-    taps.h[t] = taps_h[t];
-    taps.o[t] = taps_o[t];
-  }
-  dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, F);
-  detect_maps_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      img, resp, nms, maps, H, W, k, taps);
-  return (int)cudaGetLastError();
+  return launch<true, true>(img, resp, nms, maps, F, H, W, k, taps_h, taps_o,
+                            stream);
+}
+
+// B4: the Harris phase (resp, nms).
+extern "C" int slam_harris_response(const float* img, float* resp, float* nms,
+                                    int F, int H, int W, float k,
+                                    const float* taps_h, void* stream) {
+  return launch<true, false>(img, resp, nms, nullptr, F, H, W, k, taps_h,
+                             nullptr, stream);
+}
+
+// B3: the orientation phase (maps).
+extern "C" int slam_orientation_maps(const float* img, float* maps, int F,
+                                     int H, int W, const float* taps_o,
+                                     void* stream) {
+  return launch<false, true>(img, nullptr, nullptr, maps, F, H, W, 0.f,
+                             nullptr, taps_o, stream);
 }

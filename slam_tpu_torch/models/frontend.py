@@ -4,7 +4,7 @@ Counterpart of ``slam_tpu/models/frontend.py``. A chunk of F frames is
 processed at once on the device:
 
   chunk of F frames
-    -> detect + describe 2F images       (kernel B1 + gridded top-K)
+    -> detect + describe 2F images       (_detect_describe, below)
     -> F stereo associations             (kernel B2, disparity window)
     -> F temporal associations           (kernel B2, ego-motion window)
     -> F robust poses                    (batched 3-point RANSAC + GN)
@@ -13,6 +13,12 @@ with a one-frame carry between chunks. Failed frames reuse the last good
 relative pose (constant-velocity recovery), and the global chain is a
 sequential float32 product of the relative poses (the JAX package uses an
 associative scan; the rounding differs in the last bits).
+
+Detectors: Harris at one level (kernel B1 + gridded top-K), Harris over
+``num_levels`` pyramid levels (B1 at each), and AKAZE (kernels B5 and B3
+at each of ``max(num_levels, 2)`` octaves); ORB and SIFT are not ported
+yet. Under ``MatchConfig(norm="hamming")`` the descriptors are binarized
+to +-1 signs and every matching gate and reported distance is in bits.
 
 Descriptors stay on the device as one float16 (F, K, D) tensor; only
 keyframes are ever gathered from it (loop closure). Checkpoint/resume is
@@ -28,7 +34,8 @@ import torch
 
 from slam_tpu.config import SlamConfig
 
-from ..ops import cuda_kernels, features, matching, ransac, stereo
+from ..ops import (akaze, binary, cuda_kernels, features, matching, ransac,
+                   stereo)
 
 
 @dataclass
@@ -73,12 +80,33 @@ def _pair_correspondences(prev_links, prev_link_valid, cur_links,
 
 
 def _check_supported(cfg: SlamConfig) -> None:
-    fc, mc = cfg.features, cfg.matching
-    if fc.detector != "harris" or fc.num_levels != 1 or mc.norm != "l2":
+    if cfg.features.detector in ("orb", "sift"):
         raise NotImplementedError(
-            "the port runs the single-octave Harris detector with L2 "
-            "matching; AKAZE/ORB/SIFT, multiscale Harris and Hamming "
-            "matching are still to be ported (ROADMAP.md)")
+            f"the {cfg.features.detector} detector is still to be ported "
+            f"(ROADMAP.md); the port runs harris and akaze")
+
+
+def _detect_describe(imgs: torch.Tensor, cfg: SlamConfig) -> dict:
+    """Detection + description of a batch of (F, H, W) images (uint8 or
+    float32 in [0, 1]) under ``cfg.features``, binarized under the
+    Hamming norm."""
+    _check_supported(cfg)
+    if imgs.dtype == torch.uint8:
+        imgs = imgs.float() * (1.0 / 255.0)
+    imgs = imgs.contiguous()
+    fc = cfg.features
+    if fc.detector == "akaze":
+        out = akaze.detect_and_describe_akaze_batch(
+            imgs, max_kp=fc.max_kp, octaves=max(fc.num_levels, 2),
+            threshold=fc.akaze_threshold)
+    elif fc.num_levels > 1:
+        out = features.detect_and_describe_multiscale_batch(
+            imgs, max_kp=fc.max_kp, num_levels=fc.num_levels)
+    else:
+        out = features.detect_and_describe_batch(imgs, max_kp=fc.max_kp)
+    if cfg.matching.norm == "hamming":
+        out = dict(out, desc=binary.binarize_descriptors(out["desc"]))
+    return out
 
 
 def search_windows(mc) -> tuple:
@@ -109,20 +137,23 @@ def process_chunk(chunk_left: torch.Tensor, chunk_right: torch.Tensor,
     in [0, 1]. With ``carry`` (the previous chunk's last frame) the first
     frame is also matched against it. RANSAC draws from ``generator``.
     Returns (per-frame dict, new carry)."""
-    _check_supported(cfg)
     F = chunk_left.shape[0]
     K = cfg.features.max_kp
-    imgs = torch.cat([chunk_left, chunk_right], dim=0)
-    if imgs.dtype == torch.uint8:
-        imgs = imgs.float() * (1.0 / 255.0)
-    feats = features.detect_and_describe_batch(imgs.contiguous(), max_kp=K)
+    feats = _detect_describe(torch.cat([chunk_left, chunk_right], dim=0),
+                             cfg)
     fl = {k: v[:F] for k, v in feats.items()}
     fr = {k: v[F:] for k, v in feats.items()}
 
     mc = cfg.matching
+    D = feats["desc"].shape[-1]
+    hamming = mc.norm == "hamming"
+    # +-1 signs: the matcher's base distance is an increasing affine map
+    # of the Hamming distance, so the gate is converted
+    max_dist = (binary.base_gate_from_hamming(mc.max_hamming, D) if hamming
+                else mc.max_desc_dist)
     stereo_win, temporal_win = search_windows(mc)
     sm = matching.match_stereo_pair_batched(fl, fr, window=stereo_win,
-                                            max_dist=mc.max_desc_dist)
+                                            max_dist=max_dist)
     links, link_valid = sm["links"], sm["matched"]
 
     desc, valid, xy = fl["desc"], fl["valid"], fl["xy"]
@@ -134,7 +165,7 @@ def process_chunk(chunk_left: torch.Tensor, chunk_right: torch.Tensor,
     prev_xy = _shift_prev(xy, c.get("xy"), False)
 
     tm = matching.mutual_match(prev_desc, desc, prev_valid, valid,
-                               max_dist=mc.max_desc_dist, xy_a=prev_xy,
+                               max_dist=max_dist, xy_a=prev_xy,
                                xy_b=xy, window=temporal_win)
 
     pw, meas, corr_valid = _pair_correspondences(
@@ -174,6 +205,9 @@ def process_chunk(chunk_left: torch.Tensor, chunk_right: torch.Tensor,
     match_dist.scatter_(1, j, torch.where(ok, tm["dist"], matching.BIG))
     inlier_prev = torch.zeros((F, K + 1), dtype=torch.bool, device=j.device)
     inlier_prev.scatter_(1, j, rr["inliers"] & ok)
+    match_dist = match_dist[:, :K]
+    if hamming:  # report match distances in bits (BIG passes through)
+        match_dist = binary.hamming_from_base(match_dist, D)
 
     num_corr = corr_valid.sum(dim=1)
     out = {
@@ -183,7 +217,7 @@ def process_chunk(chunk_left: torch.Tensor, chunk_right: torch.Tensor,
         "links": links,
         "link_valid": link_valid,
         "match_prev": match_prev[:, :K].int(),
-        "match_dist": match_dist[:, :K],
+        "match_dist": match_dist,
         "inlier_prev": inlier_prev[:, :K],
         "T_rel": T_rel,
         "T_chain": T_chain,

@@ -1,20 +1,28 @@
 """Hand-written CUDA kernels of the frontend, with their plain versions.
 
-Counterpart of ``slam_tpu/ops/pallas_kernels.py``. Two kernels sit on the
-pipeline's main path:
+Counterpart of ``slam_tpu/ops/pallas_kernels.py``. Five kernels:
 
-  B1 ``detect_maps``     Harris response, 5x5 NMS map and 8 orientation
-                         cell maps in one pass (csrc/detect_maps.cu);
-  B2 ``mutual_nearest``  bf16 similarity with both nearest-neighbour
-                         reductions in one pass (csrc/mutual_nearest.cu).
+  B1 ``detect_maps``       Harris response, 5x5 NMS map and 8 orientation
+                           cell maps in one pass (csrc/detect_maps.cu);
+                           Harris detection at every pyramid level;
+  B2 ``mutual_nearest``    bf16 similarity with both nearest-neighbour
+                           reductions in one pass (csrc/mutual_nearest.cu);
+                           every L2 and Hamming matching;
+  B3 ``orientation_maps``  B1's orientation phase alone, a variant of B1's
+                           template: AKAZE's descriptor maps;
+  B4 ``harris_response``   B1's Harris phase alone (resp and NMS), a
+                           variant of B1's template; no pipeline caller;
+  B5 ``akaze_octave``      one AKAZE octave: PM-g2 diffusion steps,
+                           sigma^4 det(Hessian) and 5x5 NMS in one pass
+                           (csrc/akaze_octave.cu).
 
-Each has a plain PyTorch version with the same signature
-(``detect_maps_plain``, ``mutual_nearest_plain``). A wrapper takes the
-plain version only for tensors on the CPU; for a CUDA tensor it launches
-its kernel or raises, on the current stream. The kernels are built with
-``nvcc`` for sm_90a at first use, from the sources in ``csrc/``, into
-``build/slam_tpu_torch/`` beside the package, and bound through ctypes
-(plain C entry points returning ``cudaError_t``).
+Each has a plain PyTorch version with the same signature (the wrapper's
+name + ``_plain``). A wrapper takes the plain version only for tensors on
+the CPU; for a CUDA tensor it launches its kernel or raises, on the
+current stream. The kernels are built with ``nvcc`` for sm_90a at first
+use, from the sources in ``csrc/``, into ``build/slam_tpu_torch/`` beside
+the package, and bound through ctypes (plain C entry points returning
+``cudaError_t``).
 
 ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` calls of the plain
 versions, so a run can show which path it took.
@@ -31,17 +39,20 @@ from pathlib import Path
 
 import torch
 
-from . import features
+from . import akaze, features
 
 BIG = 1e30
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "detect_maps.cu", _PKG / "csrc" / "mutual_nearest.cu")
+SOURCES = tuple(_PKG / "csrc" / n for n in (
+    "detect_maps.cu", "mutual_nearest.cu", "akaze_octave.cu"))
 BUILD_DIR = _PKG.parent / "build" / "slam_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"detect_maps": 0, "mutual_nearest": 0}
-PLAIN_CALLS = {"detect_maps": 0, "mutual_nearest": 0}
+KERNELS = ("detect_maps", "mutual_nearest", "orientation_maps",
+           "harris_response", "akaze_octave")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 _lib = None
 build_log = ""
 
@@ -97,7 +108,14 @@ def build() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.slam_detect_maps.argtypes = [p, p, p, p, i, i, i, f, p, p, p]
-    lib.slam_detect_maps.restype = i
+    lib.slam_harris_response.argtypes = [p, p, p, i, i, i, f, p, p]
+    lib.slam_orientation_maps.argtypes = [p, p, i, i, i, p, p]
+    lib.slam_akaze_octave.argtypes = [p, p, p, p, p, i, i, i, i, f, f, p]
+    lib.slam_akaze_max_steps.argtypes = []
+    for fn in (lib.slam_detect_maps, lib.slam_harris_response,
+               lib.slam_orientation_maps, lib.slam_akaze_octave,
+               lib.slam_akaze_max_steps):
+        fn.restype = i
     lib.slam_mutual_nearest.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, f,
                                         f, p, p, p, p, p, p]
     lib.slam_mutual_nearest.restype = i
@@ -120,8 +138,31 @@ def _require(cond: bool, msg: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# B1: detection maps
+# B1, B3, B4: detection maps (one template, csrc/detect_maps.cu)
 # ---------------------------------------------------------------------------
+
+def _check_images(imgs: torch.Tensor, name: str) -> bool:
+    """Validate (F, H, W) float32 images; True when they lie on the card
+    (launch the kernel), False on the CPU (run the plain version)."""
+    _require(imgs.dim() == 3, f"{name}: expected (F, H, W), got "
+             f"{tuple(imgs.shape)}")
+    _require(imgs.dtype == torch.float32,
+             f"{name}: expected float32, got {imgs.dtype}")
+    if imgs.device.type == "cpu":
+        return False
+    _require(imgs.device.type == "cuda",
+             f"{name}: unsupported device {imgs.device}")
+    _require(imgs.is_contiguous(), f"{name}: input must be contiguous")
+    _require(min(imgs.shape) > 0, f"{name}: empty input")
+    return True
+
+
+def _taps(sigma: float):
+    """Host-computed Gaussian taps (r 2) as a C float[5] pointer (which
+    keeps its array alive): the plain versions blur with the same values."""
+    taps = (ctypes.c_float * 5)(*features.gaussian_kernel1d(sigma, 2).tolist())
+    return ctypes.cast(taps, ctypes.c_void_p)
+
 
 def detect_maps_plain(imgs: torch.Tensor, k: float = 0.05):
     """Plain version of B1: (resp, nms, maps) from the jnp-path
@@ -135,32 +176,120 @@ def detect_maps(imgs: torch.Tensor, k: float = 0.05):
     """Kernel B1: (F, H, W) float32 -> resp (F, H, W), nms (F, H, W),
     maps (F, 8, H, W), all float32 (the unshifted contract of
     pallas_kernels.detect_maps_batch)."""
-    _require(imgs.dim() == 3, f"detect_maps: expected (F, H, W), got "
-             f"{tuple(imgs.shape)}")
-    _require(imgs.dtype == torch.float32,
-             f"detect_maps: expected float32, got {imgs.dtype}")
-    if imgs.device.type == "cpu":
+    if not _check_images(imgs, "detect_maps"):
         return detect_maps_plain(imgs, k)
-    _require(imgs.device.type == "cuda",
-             f"detect_maps: unsupported device {imgs.device}")
-    _require(imgs.is_contiguous(), "detect_maps: input must be contiguous")
     F, H, W = imgs.shape
-    _require(F > 0 and H > 0 and W > 0, "detect_maps: empty input")
     lib = build()
     resp = torch.empty_like(imgs)
     nms = torch.empty_like(imgs)
     maps = torch.empty((F, 8, H, W), dtype=imgs.dtype, device=imgs.device)
-    # host-computed taps: the plain version blurs with the same values
-    th = (ctypes.c_float * 5)(*features.gaussian_kernel1d(1.5, 2).tolist())
-    to = (ctypes.c_float * 5)(*features.gaussian_kernel1d(1.0, 2).tolist())
+    th, to = _taps(1.5), _taps(1.0)
     with torch.cuda.device(imgs.device):
         err = lib.slam_detect_maps(
             imgs.data_ptr(), resp.data_ptr(), nms.data_ptr(), maps.data_ptr(),
-            F, H, W, float(k), ctypes.cast(th, ctypes.c_void_p),
-            ctypes.cast(to, ctypes.c_void_p), _stream(imgs))
+            F, H, W, float(k), th, to, _stream(imgs))
     _check(err, "detect_maps")
     LAUNCHES["detect_maps"] += 1
     return resp, nms, maps
+
+
+def harris_response_plain(imgs: torch.Tensor, k: float = 0.05):
+    """Plain version of B4: (resp, nms) (features.harris_response +
+    features.nms)."""
+    PLAIN_CALLS["harris_response"] += 1
+    resp = features.harris_response(imgs, k)
+    return resp, features.nms(resp)
+
+
+def harris_response(imgs: torch.Tensor, k: float = 0.05):
+    """Kernel B4, B1's Harris phase: (F, H, W) float32 -> resp and nms,
+    each (F, H, W) float32 (pallas_kernels.harris_response_batch)."""
+    if not _check_images(imgs, "harris_response"):
+        return harris_response_plain(imgs, k)
+    F, H, W = imgs.shape
+    lib = build()
+    resp = torch.empty_like(imgs)
+    nms = torch.empty_like(imgs)
+    th = _taps(1.5)
+    with torch.cuda.device(imgs.device):
+        err = lib.slam_harris_response(
+            imgs.data_ptr(), resp.data_ptr(), nms.data_ptr(), F, H, W,
+            float(k), th, _stream(imgs))
+    _check(err, "harris_response")
+    LAUNCHES["harris_response"] += 1
+    return resp, nms
+
+
+def orientation_maps_plain(imgs: torch.Tensor):
+    """Plain version of B3: features.orientation_cell_maps."""
+    PLAIN_CALLS["orientation_maps"] += 1
+    return features.orientation_cell_maps(imgs)
+
+
+def orientation_maps(imgs: torch.Tensor):
+    """Kernel B3, B1's orientation phase: (F, H, W) float32 -> (F, 8, H, W)
+    float32 (pallas_kernels.orientation_cell_maps_batch, unshifted)."""
+    if not _check_images(imgs, "orientation_maps"):
+        return orientation_maps_plain(imgs)
+    F, H, W = imgs.shape
+    lib = build()
+    maps = torch.empty((F, 8, H, W), dtype=imgs.dtype, device=imgs.device)
+    to = _taps(1.0)
+    with torch.cuda.device(imgs.device):
+        err = lib.slam_orientation_maps(imgs.data_ptr(), maps.data_ptr(), F,
+                                        H, W, to, _stream(imgs))
+    _check(err, "orientation_maps")
+    LAUNCHES["orientation_maps"] += 1
+    return maps
+
+
+# ---------------------------------------------------------------------------
+# B5: one AKAZE octave (csrc/akaze_octave.cu)
+# ---------------------------------------------------------------------------
+
+def akaze_octave_plain(imgs: torch.Tensor, k: torch.Tensor, steps: int = 6,
+                       tau: float = 0.2, sigma: float = 1.6):
+    """Plain version of B5: (L, resp, nms) = akaze.diffuse,
+    akaze._hessian_response and features.nms."""
+    PLAIN_CALLS["akaze_octave"] += 1
+    L = akaze.diffuse(imgs, k, steps, tau)
+    resp = akaze._hessian_response(L, sigma)
+    return L, resp, features.nms(resp)
+
+
+def akaze_octave(imgs: torch.Tensor, k: torch.Tensor, steps: int = 6,
+                 tau: float = 0.2, sigma: float = 1.6):
+    """Kernel B5: (F, H, W) float32 images and their (F,) float32 PM
+    contrasts ``k`` (on the images' device) -> the diffused L, the
+    scale-normalized Hessian response and its NMS map, each (F, H, W)
+    float32 (pallas_kernels.akaze_octave_batch, with features.nms's -inf
+    outside the image). Raises ValueError for more steps than one block's
+    shared memory holds (``slam_akaze_max_steps``, 33 on an H100)."""
+    on_card = _check_images(imgs, "akaze_octave")
+    _require(k.shape == imgs.shape[:1] and k.dtype == torch.float32
+             and k.device == imgs.device,
+             f"akaze_octave: k must be float32 ({imgs.shape[0]},) on "
+             f"{imgs.device}")
+    _require(steps >= 0, f"akaze_octave: steps={steps} < 0")
+    if not on_card:
+        return akaze_octave_plain(imgs, k, steps, tau, sigma)
+    F, H, W = imgs.shape
+    lib = build()
+    max_steps = lib.slam_akaze_max_steps()
+    _require(steps <= max_steps, f"akaze_octave: steps={steps} above the "
+             f"{max_steps} one block's shared memory holds")
+    k = k.contiguous()
+    L = torch.empty_like(imgs)
+    resp = torch.empty_like(imgs)
+    nms = torch.empty_like(imgs)
+    with torch.cuda.device(imgs.device):
+        err = lib.slam_akaze_octave(
+            imgs.data_ptr(), k.data_ptr(), L.data_ptr(), resp.data_ptr(),
+            nms.data_ptr(), F, H, W, int(steps), float(tau),
+            float(sigma) ** 4, _stream(imgs))
+    _check(err, "akaze_octave")
+    LAUNCHES["akaze_octave"] += 1
+    return L, resp, nms
 
 
 # ---------------------------------------------------------------------------

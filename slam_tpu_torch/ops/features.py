@@ -1,6 +1,7 @@
 """Harris detection and SIFT-style description, batched over images.
 
-Counterpart of the single-octave Harris path of ``slam_tpu/ops/features.py``:
+Counterpart of the Harris paths of ``slam_tpu/ops/features.py``, single
+octave and pyramid (``detect_and_describe_multiscale_batch``):
 
   * detection: Harris response (Sobel, Gaussian sigma 1.5 r 2 structure
     tensor, ``det - 0.05 tr^2``), 5x5 non-max suppression, then a gridded
@@ -12,10 +13,11 @@ Counterpart of the single-octave Harris path of ``slam_tpu/ops/features.py``:
     L2 -> clip 0.2 -> L2 (128-d).
 
 The per-pixel maps (response, NMS map, orientation maps) come from kernel
-B1 (``cuda_kernels.detect_maps``) on the card; the functions below are its
-plain version and the reference for its edge semantics: every convolution
-stage treats its own input as zero outside the image, as XLA's SAME
-convolution does, and NMS treats outside as -inf.
+B1 (``cuda_kernels.detect_maps``) on the card, at every pyramid level;
+the functions below are its plain version and the reference for its edge
+semantics: every convolution stage treats its own input as zero outside
+the image, as XLA's SAME convolution does, and NMS treats outside as
+-inf.
 
 Images are (F, H, W) float32 in [0, 1].
 """
@@ -245,3 +247,70 @@ def detect_and_describe_batch(imgs: torch.Tensor,
     desc = describe(det["xy"], det["valid"], maps)
     return {"xy": det["xy"], "desc": desc, "valid": det["valid"],
             "resp": det["resp"]}
+
+
+# ---------------------------------------------------------------------------
+# pyramids (multiscale Harris here, AKAZE's octaves in ops/akaze.py)
+# ---------------------------------------------------------------------------
+
+def downsample2(imgs: torch.Tensor) -> torch.Tensor:
+    """Anti-aliased 2x downsample of (F, H, W) images (one octave)."""
+    return gaussian_blur(imgs, 1.0, 2)[..., ::2, ::2].contiguous()
+
+
+def level_budgets(max_kp: int, num_levels: int) -> list[int]:
+    """Per-level keypoint budgets: full resolution keeps half at every
+    split, in multiples of 128 (the JAX package's _multiscale_budgets and
+    akaze._octave_budgets, which are the same function)."""
+    budgets = []
+    remaining = max_kp
+    for lvl in range(num_levels):
+        k = remaining // 2 if lvl < num_levels - 1 else remaining
+        k = max(128, (k // 128) * 128)
+        k = min(k, remaining)
+        budgets.append(k)
+        remaining -= k
+    budgets[0] += remaining
+    return budgets
+
+
+def level_border(lvl: int) -> int:
+    """Detection border of pyramid level ``lvl`` (the jnp paths' rule: the
+    port's kernels have no edge band to keep descriptor samples out of)."""
+    return max(4, 12 >> lvl)
+
+
+def stack_levels(levels: list[tuple[dict, torch.Tensor]]) -> dict:
+    """Per-level (detections, descriptors), level 0 first -> one
+    (F, sum of budgets) set of slots: xy mapped back to level-0 pixels,
+    plus ``scale`` = 2^level."""
+    out = {key: [] for key in ("xy", "desc", "valid", "resp", "scale")}
+    for lvl, (det, desc) in enumerate(levels):
+        factor = float(1 << lvl)
+        out["xy"].append(det["xy"] * factor)
+        out["desc"].append(desc)
+        out["valid"].append(det["valid"])
+        out["resp"].append(det["resp"])
+        out["scale"].append(torch.full(det["valid"].shape, factor,
+                                       device=desc.device))
+    return {key: torch.cat(parts, dim=1) for key, parts in out.items()}
+
+
+def detect_and_describe_multiscale_batch(imgs: torch.Tensor,
+                                         max_kp: int = DEFAULT_MAX_KP,
+                                         num_levels: int = 2) -> dict:
+    """Pyramid Harris over (F, H, W) images: kernel B1 at every level on
+    the whole batch, each level's budget of keypoints described at its own
+    level, coordinates mapped back to level-0 pixels. Returns the
+    single-octave dict plus ``scale`` (F, K)."""
+    from .cuda_kernels import detect_maps
+
+    levels = []
+    level = imgs
+    for lvl, k in enumerate(level_budgets(max_kp, num_levels)):
+        resp, resp_nms, maps = detect_maps(level)
+        det = select_keypoints(resp, resp_nms, k, border=level_border(lvl))
+        levels.append((det, describe(det["xy"], det["valid"], maps)))
+        if lvl + 1 < num_levels:
+            level = downsample2(level)
+    return stack_levels(levels)

@@ -1,4 +1,5 @@
-"""Kernels B1 (detect_maps) and B2 (mutual_nearest) of the port.
+"""Kernels B1 (detect_maps), B2 (mutual_nearest), B3 (orientation_maps),
+B4 (harris_response) and B5 (akaze_octave) of the port.
 
 On the CPU the wrappers run their plain versions, which are held here
 against the JAX package's Pallas kernels in interpret mode. The tests
@@ -157,20 +158,35 @@ def test_mutual_match_matches_pallas_wrapper():
 
 def test_cpu_tensors_take_the_plain_versions():
     ck.reset_counters()
-    ck.detect_maps(t(images(3, 1, 40, 50)))
+    x = t(images(3, 1, 40, 50))
+    ck.detect_maps(x)
+    ck.harris_response(x)
+    ck.orientation_maps(x)
+    ck.akaze_octave(x, torch.ones(1))
     a, b, va, vb, xa, xb = desc_sets(3, 2, 30, 40)
     ck.mutual_nearest(t(a), t(b), t(va), t(vb))
-    assert ck.PLAIN_CALLS == {"detect_maps": 1, "mutual_nearest": 1}
-    assert ck.LAUNCHES == {"detect_maps": 0, "mutual_nearest": 0}
+    assert ck.PLAIN_CALLS == dict.fromkeys(ck.KERNELS, 1)
+    assert ck.LAUNCHES == dict.fromkeys(ck.KERNELS, 0)
+
+
+BAD_IMAGES = {"ndim": torch.zeros((4, 5)),
+              "dtype": torch.zeros((1, 8, 8), dtype=torch.float64),
+              "device": torch.zeros((1, 8, 8), device="meta")}
 
 
 @pytest.mark.parametrize("case", ["ndim", "dtype", "device"])
 def test_detect_maps_rejects_bad_input(case):
-    x = {"ndim": torch.zeros((4, 5)),
-         "dtype": torch.zeros((1, 8, 8), dtype=torch.float64),
-         "device": torch.zeros((1, 8, 8), device="meta")}[case]
     with pytest.raises(ValueError):
-        ck.detect_maps(x)
+        ck.detect_maps(BAD_IMAGES[case])
+
+
+@pytest.mark.parametrize("kernel", ["harris_response", "orientation_maps",
+                                    "akaze_octave"])
+@pytest.mark.parametrize("case", ["ndim", "dtype", "device"])
+def test_image_kernels_reject_bad_input(case, kernel):
+    args = (torch.ones(1),) if kernel == "akaze_octave" else ()
+    with pytest.raises(ValueError):
+        getattr(ck, kernel)(BAD_IMAGES[case], *args)
 
 
 @pytest.mark.parametrize("case", ["shape", "mask", "window", "device"])
@@ -251,6 +267,58 @@ def test_cuda_mutual_nearest_matches_plain(cuda, window, sizes):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 100, 333), (3, 64, 64), (1, 37, 41)])
+def test_cuda_harris_and_orientation_match_plain(cuda, shape):
+    """B4 and B3, B1's phases alone, with B1's tolerances over the whole
+    image; each launches once."""
+    x = t(images(7, *shape), device=cuda)
+    ck.reset_counters()
+    r_k, n_k = ck.harris_response(x)
+    m_k = ck.orientation_maps(x)
+    assert ck.LAUNCHES["harris_response"] == ck.LAUNCHES[
+        "orientation_maps"] == 1
+    r_p, n_p = ck.harris_response_plain(x)
+    m_p = ck.orientation_maps_plain(x)
+    torch.cuda.synchronize()
+    assert float((r_k - r_p).abs().max()) <= 1e-5 * float(r_p.abs().max())
+    mism = (torch.isfinite(n_k) != torch.isfinite(n_p)).cpu().numpy()
+    assert not (mism & ~near_tie(r_p.cpu())).any()
+    m_bad = ((m_k - m_p).abs() > 1e-5 * float(m_p.abs().max())).float()
+    assert float(m_bad.mean()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [0, 1, 6, 9])
+@pytest.mark.parametrize("shape", [(2, 100, 333), (2, 47, 156), (1, 13, 9)])
+def test_cuda_akaze_octave_matches_plain(cuda, shape, steps):
+    """B5 over the whole image, wrap included (images smaller than the
+    halo'd tile wrap more than once): L within 1e-5 of max |L|, resp
+    within 1e-4 of max |resp|, the NMS pattern equal away from near-ties."""
+    x = t(images(8, *shape), device=cuda)
+    k = torch.linspace(0.05, 0.2, shape[0], device=cuda)
+    ck.reset_counters()
+    L_k, r_k, n_k = ck.akaze_octave(x, k, steps, sigma=3.2)
+    assert ck.LAUNCHES["akaze_octave"] == 1
+    L_p, r_p, n_p = ck.akaze_octave_plain(x, k, steps, sigma=3.2)
+    torch.cuda.synchronize()
+    assert float((L_k - L_p).abs().max()) <= 1e-5 * float(L_p.abs().max())
+    assert float((r_k - r_p).abs().max()) <= 1e-4 * float(r_p.abs().max())
+    mism = (torch.isfinite(n_k) != torch.isfinite(n_p)).cpu().numpy()
+    assert not (mism & ~near_tie(r_p.cpu())).any()
+
+
+@pytest.mark.cuda
+def test_cuda_akaze_octave_rejects_too_many_steps(cuda):
+    x = torch.rand((1, 40, 60), device=cuda)
+    k = torch.ones(1, device=cuda)
+    top = ck.build().slam_akaze_max_steps()
+    assert top >= 6
+    ck.akaze_octave(x, k, top)
+    with pytest.raises(ValueError, match="shared memory"):
+        ck.akaze_octave(x, k, top + 1)
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_reject_non_contiguous(cuda):
     x = torch.rand((2, 40, 60), device=cuda).transpose(1, 2)
     with pytest.raises(ValueError):
@@ -283,5 +351,5 @@ def test_cuda_slice_runs_through_the_kernels(cuda):
                                 run_loop_closure=False, device=cuda)
     assert ck.LAUNCHES["detect_maps"] == 2
     assert ck.LAUNCHES["mutual_nearest"] == 4
-    assert ck.PLAIN_CALLS == {"detect_maps": 0, "mutual_nearest": 0}
+    assert not any(ck.PLAIN_CALLS.values())
     assert np.isfinite(res.T_frontend).all()
