@@ -21,6 +21,20 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      their per-frame contrast k), and at (2, 47, 156), KITTI's octave 3,
      where the halo is a large share of the image and the wrap matters;
      median times;
+  2d. kernel B6 (cholesky_solve) against its plain version on the card:
+     the real reduced pose systems of the scene's windows (frontend on the
+     card, keyframes, build_windows + init_landmarks, the first depth
+     prune, one Schur setup at LM's lam0: (windows, 144, 144) with the
+     gauge rows), random SPD systems with gauge rows at (64, 144, 144)
+     (BA's device_batch), (1, 12, 12) (the loop-closure mini-bundle), and
+     a batch of 8 in which one system is not positive definite. Tolerance:
+     with the float64 solution of the same systems on the card as the
+     reference, the kernel's error relative to max |x| (per system, the
+     largest over the batch) is at most 4x the plain version's + 1e-6,
+     and the failed system's row is all NaN in both; median times of the
+     kernel, the plain version (cholesky_ex + cholesky_solve, cuSOLVER)
+     and torch.linalg.solve_ex at (64, 144, 144), the scene's batch and
+     (1, 12, 12);
   3. kernel B2 (mutual_nearest) against its plain version on the card at
      every call the main path makes: (32, 2048, 128) with the stereo and
      the temporal window of SlamConfig().matching, and loop verification's
@@ -31,25 +45,46 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      under the stereo and the temporal window; every index equal to the
      lowest-index argmin, ties included; median times;
   4. main path: run_pipeline + evaluate on an 80-frame 376x1241 loop
-     scene (157 m, 8000 landmarks) on the card, with both kernels'
-     launch counters checked and every stage's ATE under 1 m;
+     scene (157 m, 8000 landmarks) on the card, with B1, B2 and B6
+     launched (B6 once per LM iteration of BA and of loop closure, by
+     shape), no plain version run and every stage's ATE under 1 m; B6's
+     time on the path from its launches and phase 2d's times;
   4b. the AKAZE path: the same, under SlamConfig(features=
      FeatureConfig(detector="akaze"), matching=MatchConfig(norm=
-     "hamming")), with B5, B3 and B2 launched and no plain version run;
+     "hamming")), with B5, B3, B2 and B6 launched and no plain version
+     run;
   4c. multiscale Harris: run_frontend under FeatureConfig(num_levels=2),
      B1 launched at both level shapes, frontend ATE under 1 m;
+  4d. the main path with BA's solve on the library instead of B6
+     (ops.ba._spd_solve swapped, here only, for B6's plain version,
+     cholesky_ex + cholesky_solve): the same closures as phase 4 and
+     every stage's ATE within 0.01 m of phase 4's;
+  4e. the BA engine A/B: ops.ba.optimize_bundle at B=64, P=24, L=512,
+     M=4096, 20 iterations, on seeded synthetic windows, solving on B6
+     and on the library (median of 5 after a warm-up, and the median
+     final cost of each), and one LM iteration split by phase (block
+     build, Schur reduction, solve, back-substitution, cost) from a
+     torch.profiler trace: host time, device busy time and the host's
+     blocking calls of each phase;
   5. with --profile DIR: one more warm run of the main path, and one of
      the AKAZE path, under torch.profiler; wall time, device busy time
      (union of the device events' intervals) and idle share of that one
      run, per stage and in all, and device time by kernel, into
      DIR/profile.json and DIR/profile_akaze.json.
 The second line from the end is the kernels' JSON record (after a full
-run only), the last line the device record. Nothing here imports JAX.
+run only): per kernel its launches on the path that runs it, max abs
+error against its plain version, its time, the plain version's, the
+least time the card could take (bytes over 3.35 TB/s or operations over
+the peak rate of their type, the larger) and one PyTorch call computing
+the same function where there is one. The last line is the device
+record. Nothing here imports JAX or any module of the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import json
 import subprocess
 import sys
@@ -62,6 +97,16 @@ import torch
 SEED = 0
 HW = (376, 1241)
 TIMING_RUNS = 20
+# the H100 SXM's published peaks (NVIDIA's data sheet, dense, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12}
+# arithmetic per pixel of the image kernels' plain versions, counted
+# roughly (each stays 10x or more below its bytes bound): B4 gradients,
+# products, three 5-tap separable blurs, response, 5x5 NMS; B3 gradients,
+# magnitude, atan2, 8-bin soft assignment, eight 5-tap separable blurs;
+# B1 both; B5 six PM-g2 steps of ~20, the Hessian and the NMS
+OPS_PER_PIXEL = {"harris_response": 100, "orientation_maps": 200,
+                 "detect_maps": 300, "akaze_octave": 155}
 
 
 def log(*a):
@@ -91,6 +136,19 @@ def median_ms(fn, runs: int = TIMING_RUNS) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(n_bytes: float, n_ops: float, kind: str = "f32"):
+    """The least time in ms the card could take: bytes over the memory
+    rate or operations over the peak rate of their type, the larger;
+    and which of the two it is."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def nms_mismatches(n_k, n_p, r_p, r_scale, label: str) -> int:
@@ -324,6 +382,224 @@ def check_b2_hamming(ck, binary, inputs, window, label: str):
     return err, n_tied
 
 
+def spd_systems(gen, B, N, bad=()):
+    """Random SPD systems with the gauge rows (the frozen pose 0's six
+    identity rows and columns), as tests/test_pallas_parity.py builds
+    them, and right-hand sides zero on the gauge. The systems in ``bad``
+    get one eigenvalue of -1 below the gauge block, so their factorization
+    fails part way."""
+    dev = gen.device
+    A = torch.randn((B, N, N), generator=gen, device=dev)
+    S = A @ A.transpose(1, 2) + 3.0 * torch.eye(N, device=dev)
+    for b in bad:
+        low = float(torch.linalg.eigvalsh(S[b, 6:, 6:].double()).min())
+        S[b, 6:, 6:] -= (low + 1.0) * torch.eye(N - 6, device=dev)
+    S[:, :6, :] = 0.0
+    S[:, :, :6] = 0.0
+    S[:, torch.arange(6), torch.arange(6)] = 1.0
+    g = torch.randn((B, N), generator=gen, device=dev)
+    g[:, :6] = 0.0
+    return S.contiguous(), g
+
+
+def b6_bound(S, g):
+    """B6's bound: S and g in, x out; a Cholesky and two substitutions,
+    N^3 / 3 + 2 N^2 operations, per system."""
+    B, N = g.shape
+    return bound(nbytes(S, g, g), B * (N ** 3 / 3 + 2 * N ** 2))
+
+
+def check_b6(ck, S, g, label: str, bad=None) -> float:
+    """Kernel B6 vs its plain version, both against the float64 solution
+    of the same systems on the card. Tolerance: the kernel's error
+    relative to max |x| (per system, the largest over the batch) at most
+    4x the plain version's + 1e-6 (both factor the same float32 matrix,
+    summing in other orders); the systems whose factorization the plain
+    version fails (``bad``, where given), and only they, all NaN in the
+    kernel's result. Returns max abs (kernel - plain) over the solved
+    rows."""
+    x_k = ck.cholesky_solve(S, g)
+    x_p = ck.cholesky_solve_plain(S, g)
+    x_64 = torch.linalg.solve(S.double(), g.double())
+    sync(S)
+    failed = torch.isnan(x_p).all(-1)
+    rows = failed.nonzero().flatten().tolist()
+    if bad is not None and rows != list(bad):
+        fail(f"B6 {label}: the plain version fails systems {rows}, want "
+             f"{list(bad)}")
+    if not torch.equal(torch.isnan(x_k).all(-1), failed):
+        fail(f"B6 {label}: the kernel's NaN rows "
+             f"{torch.isnan(x_k).all(-1).nonzero().flatten().tolist()}, the "
+             f"plain version's {rows}")
+    ok = ~failed
+    if not torch.isfinite(x_k[ok]).all():
+        fail(f"B6 {label}: non-finite x in a solved system")
+    scale = x_64[ok].abs().amax(-1)
+    e_k = float(((x_k[ok] - x_64[ok]).abs().amax(-1) / scale).max())
+    e_p = float(((x_p[ok] - x_64[ok]).abs().amax(-1) / scale).max())
+    if e_k > 4.0 * e_p + 1e-6:
+        fail(f"B6 {label}: error {e_k:.3e} > 4 x plain {e_p:.3e} + 1e-6")
+    err = float((x_k[ok] - x_p[ok]).abs().max())
+    log(f"[B6] {label} {tuple(S.shape)}: error vs float64 {e_k:.3e} "
+        f"(plain {e_p:.3e}), max abs vs plain {err:.3e}, failed systems "
+        f"{rows} all NaN in both")
+    return err
+
+
+def scene_windows(frontend, bundle, TrackStore, L, R, scene, cfg):
+    """The scene's BA windows, built on the host from a frontend run on
+    the card as run_bundles builds them."""
+    fr = frontend.run_frontend(L, R, scene.calib, cfg, device="cuda")
+    db = TrackStore.from_frontend(fr)
+    kfs = bundle.select_keyframes(db, fr.T_w2c, cfg.keyframes)
+    batch = bundle.build_windows(db, fr.T_w2c, kfs, cfg.bundle)
+    bundle.init_landmarks(batch, scene.calib)
+    return batch
+
+
+def reduced_systems(ba, poses, points, cam, lm, meas, w, calib, lam0=1e-4):
+    """The reduced pose systems (S, ghat) of LM's first iteration: the
+    first depth prune, then one Schur setup at lam0."""
+    w = ba.prune_depth_weights(poses, points, cam, lm, w)
+    J_pose, J_lm, r = ba._linearize(poses, points, cam, lm, meas, w, calib)
+    blocks = ba._build_blocks(J_pose, J_lm, r, cam, lm, poses.shape[1],
+                              points.shape[1])
+    lam = torch.full((poses.shape[0],), lam0, device=poses.device)
+    S, ghat, _, _ = ba._damped_system(blocks, lam)
+    return S, ghat
+
+
+def synthetic_windows(se3, stereo, calib, B, P, L, M, seed):
+    """B seeded BA windows at full capacity on calib's device: P cameras
+    1 m apart along the optical axis, L landmarks 8-60 m ahead, each seen
+    by M / L distinct cameras (stereo measurements with 0.5 px noise), and
+    the initial state perturbed by ~0.3 deg / 5 cm per pose (pose 0
+    exact) and 10 cm per landmark."""
+    dev = calib.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    per = M // L
+    T = torch.eye(4, device=dev).repeat(B, P, 1, 1)
+    T[..., 2, 3] = -torch.arange(P, device=dev, dtype=torch.float32)
+    lo = torch.tensor([-12.0, -3.0, P + 8.0], device=dev)
+    hi = torch.tensor([12.0, 3.0, P + 60.0], device=dev)
+    X = lo + (hi - lo) * torch.rand((B, L, 3), generator=gen, device=dev)
+    cam = torch.argsort(torch.rand((B, L, P), generator=gen, device=dev),
+                        dim=-1)[..., :per].reshape(B, M)
+    lm = torch.arange(L, device=dev).repeat_interleave(per).repeat(B, 1)
+    b = torch.arange(B, device=dev)[:, None]
+    Tc, Xo = T[b, cam], X[b, lm]
+    Xc = se3.mv3(Tc[..., :3, :3], Xo) + Tc[..., :3, 3]
+    meas = stereo.project(calib, Xc) + 0.5 * randn(B, M, 3)
+    delta = torch.cat([0.005 * randn(B, P, 3), 0.05 * randn(B, P, 3)], -1)
+    delta[:, 0] = 0.0
+    poses0 = se3.retract(T, delta)
+    points0 = X + 0.1 * randn(B, L, 3)
+    w = torch.ones((B, M), device=dev)
+    return poses0, points0, cam, lm, meas, w
+
+
+@contextlib.contextmanager
+def solving_with(ba, solve):
+    """ops.ba._spd_solve replaced by ``solve`` inside the block: the
+    library solve (B6's plain version) for the A/B phases, or a counter."""
+    saved = ba._spd_solve
+    ba._spd_solve = solve
+    try:
+        yield
+    finally:
+        ba._spd_solve = saved
+
+
+LM_PHASES = ("block build", "Schur reduction", "solve", "back-substitution",
+             "cost")
+
+
+def lm_split(ba, se3, poses, points, cam, lm, meas, w, calib,
+             runs: int = 5) -> dict:
+    """One LM iteration by phase, from a torch.profiler trace of ``runs``
+    iterations after a warm-up: block build (residuals, Jacobians,
+    index_add_ blocks), Schur reduction (damping, landmark inverses, S and
+    ghat), solve (ba._spd_solve), back-substitution (landmark steps, pose
+    retraction) and cost (the trial state's cost). Each phase runs in a
+    ``lm:<phase>`` range and the device is drained after it, so the
+    phase's device work lies between its range's start and the next's.
+    Per phase, medians over the runs: ``host_ms``, the range's host time
+    (launches, and any wait inside the phase's own calls); ``busy_ms``,
+    the device's busy time (union of the device events' intervals) in its
+    window; ``events``, those device events; ``blocking``, the CUDA
+    runtime calls named *Synchronize* inside the range. ``wall_ms`` is the
+    median iteration from its first range to its end mark."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    P, L = poses.shape[1], points.shape[1]
+    lam = torch.full((poses.shape[0],), 1e-4, device=poses.device)
+
+    @contextlib.contextmanager
+    def phase(name):
+        with record_function(f"lm:{name}"):
+            yield
+        torch.cuda.synchronize()
+
+    def iteration():
+        with phase("block build"):
+            J_pose, J_lm, r = ba._linearize(poses, points, cam, lm, meas, w,
+                                            calib)
+            blocks = ba._build_blocks(J_pose, J_lm, r, cam, lm, P, L)
+        with phase("Schur reduction"):
+            S, ghat, Bm, Hll_inv = ba._damped_system(blocks, lam)
+        with phase("solve"):
+            dp = -ba._spd_solve(S, ghat)
+        with phase("back-substitution"):
+            dl = ba._back_substitute(dp, Bm, Hll_inv, blocks[1])
+            new_poses = se3.retract(poses, dp.reshape(-1, P, 6))
+        with phase("cost"):
+            ba._cost(new_poses, points + dl, cam, lm, meas, w, calib)
+        with record_function("lm:end"):
+            pass
+
+    iteration()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            iteration()
+    events = prof.events()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and not e.name.startswith("lm:")]
+    merged = _merge([(e.time_range.start, e.time_range.end) for e in dev])
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    marks = sorted({(e.time_range.start, e.time_range.end, e.name[3:])
+                    for e in host if e.name.startswith("lm:")})
+    if len(marks) != runs * (len(LM_PHASES) + 1):
+        fail(f"BA split: {len(marks)} lm: ranges in the trace for {runs} "
+             f"iterations of {len(LM_PHASES)} phases")
+    syncs = [e.time_range.start for e in host if "Synchronize" in e.name]
+    per = {n: collections.defaultdict(list) for n in LM_PHASES}
+    walls = []
+    t_first = None
+    for (lo, hi, name), (nxt, _, _) in zip(marks, marks[1:] + [marks[-1]]):
+        if name == "end":
+            walls.append(lo - t_first)
+            t_first = None
+            continue
+        t_first = lo if t_first is None else t_first
+        rec = per[name]
+        rec["host_ms"].append((hi - lo) * 1e-3)
+        rec["busy_ms"].append(_covered(merged, lo, nxt) * 1e-3)
+        rec["events"].append(sum(1 for e in dev
+                                 if lo <= e.time_range.start < nxt))
+        rec["blocking"].append(sum(1 for t in syncs if lo <= t < hi))
+    out = {n: {k: float(np.median(v)) for k, v in rec.items()}
+           for n, rec in per.items()}
+    out["wall_ms"] = float(np.median(walls)) * 1e-3
+    return out
+
+
 def _merge(iv):
     """Union of [start, end) intervals, sorted and merged."""
     out = []
@@ -411,17 +687,23 @@ def profile_path(pipeline, L, R, calib, cfg, out_dir, card,
     log(f"[profile{tag}] written to {path}")
 
 
-def drive_path(pipeline, ck, L, R, scene, cfg, required, tag, card):
+def drive_path(pipeline, ck, L, R, scene, cfg, required, tag, card,
+               on_reset=None, plain_ok=()):
     """run_pipeline + evaluate under ``cfg`` on the card: a warm-up pass
     (cuDNN / cuBLAS / cuSOLVER handles, allocator), then the measured pass
-    with the launch counters zeroed just before it and read just after.
-    Fails unless every kernel in ``required`` launched, no plain version
-    ran, the trajectory is finite, at least one loop closed and every
-    stage's ATE is under 1 m. Returns the measured pass's launches."""
+    with the launch counters zeroed just before it (``on_reset`` is called
+    there too) and read just after. Fails unless every kernel in
+    ``required`` launched, no plain version ran (but those of
+    ``plain_ok``, which the caller put in on purpose), the trajectory is
+    finite, at least one loop closed and every stage's ATE is under 1 m.
+    Returns the measured pass's launches, plain calls, ATEs, closure frame
+    pairs, stage timings and number of BA windows."""
     pipeline.run_pipeline(L, R, scene.calib, cfg, verbose=False,
                           device="cuda")
     torch.cuda.synchronize()
     ck.reset_counters()
+    if on_reset is not None:
+        on_reset()
     t0 = time.perf_counter()
     res = pipeline.run_pipeline(L, R, scene.calib, cfg, verbose=False,
                                 device="cuda")
@@ -432,7 +714,7 @@ def drive_path(pipeline, ck, L, R, scene, cfg, required, tag, card):
     report = pipeline.evaluate(res, scene.T_w2c)
     if any(launches[k] == 0 for k in required):
         fail(f"{tag}: a kernel of the path was not launched: {launches}")
-    if any(plain.values()):
+    if any(n for k, n in plain.items() if k not in plain_ok):
         fail(f"{tag}: a plain version ran during the CUDA path: {plain}")
     n_frames = L.shape[0]
     if res.T_frontend.shape != (n_frames, 4, 4) or not np.isfinite(
@@ -454,7 +736,9 @@ def drive_path(pipeline, ck, L, R, scene, cfg, required, tag, card):
         f"{[(c.frame_i, c.frame_j, c.num_inliers) for c in res.closures]}"
         f"; ATE m {json.dumps(ates)}; pose failures "
         f"{report['num_pose_failures']}; launches {launches} ({card})")
-    return launches
+    return {"launches": launches, "plain": plain, "ates": ates, "timings": t,
+            "closures": [(c.frame_i, c.frame_j) for c in res.closures],
+            "windows": res.bundles.poses.shape[0]}
 
 
 def main(argv=None) -> int:
@@ -471,13 +755,14 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
         return 1
-    from slam_tpu.config import FeatureConfig, MatchConfig, SlamConfig
-    from slam_tpu.utils import metrics
     from slam_tpu_torch import pipeline
-    from slam_tpu_torch.models import frontend, loop_closure
-    from slam_tpu_torch.ops import akaze, binary, features
+    from slam_tpu_torch.config import FeatureConfig, MatchConfig, SlamConfig
+    from slam_tpu_torch.models import bundle, frontend, loop_closure
+    from slam_tpu_torch.models.trackstore import TrackStore
+    from slam_tpu_torch.ops import akaze, ba, binary, features, se3
+    from slam_tpu_torch.ops import stereo as stereo_ops
     from slam_tpu_torch.ops import cuda_kernels as ck
-    from slam_tpu_torch.utils import synthetic
+    from slam_tpu_torch.utils import metrics, synthetic
 
     cfg = SlamConfig()
 
@@ -517,6 +802,12 @@ def main(argv=None) -> int:
                  check_b1(ck, odd, "odd"))
     b1_ms = median_ms(lambda: ck.detect_maps(path))
     b1_plain_ms = median_ms(lambda: ck.detect_maps_plain(path))
+    # 1 plane in; resp, nms and 8 orientation maps out
+    px = path.numel()
+    bounds = {"detect_maps": bound(4 * px * 11,
+                                   OPS_PER_PIXEL["detect_maps"] * px),
+              "harris_response": bound(4 * px * 3,
+                                       OPS_PER_PIXEL["harris_response"] * px)}
     log(f"[B1] {tuple(path.shape)} median of {TIMING_RUNS}: kernel "
         f"{b1_ms:.3f} ms, plain {b1_plain_ms:.3f} ms ({card})")
 
@@ -536,6 +827,8 @@ def main(argv=None) -> int:
     b3_err = max(check_b3(ck, oct0, "octave 0"),
                  check_b3(ck, oct1, "octave 1"),
                  check_b3(ck, odd, "odd"))
+    bounds["orientation_maps"] = bound(4 * px * 9,
+                                       OPS_PER_PIXEL["orientation_maps"] * px)
     b3_times = {}
     for label, x in (("octave 0", oct0), ("octave 1", oct1)):
         b3_times[label] = (median_ms(lambda: ck.orientation_maps(x)),
@@ -556,6 +849,8 @@ def main(argv=None) -> int:
         small = features.downsample2(small)
     b5_err = max(b5_err, check_b5(ck, small, k[:2], 12.8,
                                   "KITTI octave 3")[0])
+    bounds["akaze_octave"] = bound(4 * px * 4 + nbytes(k),
+                                   OPS_PER_PIXEL["akaze_octave"] * px)
     b5_times = {}
     for label, x, sigma in (("octave 0", oct0, 1.6), ("octave 1", oct1, 3.2)):
         b5_times[label] = (
@@ -565,6 +860,41 @@ def main(argv=None) -> int:
             f"{b5_times[label][0]:.3f} ms, plain {b5_times[label][1]:.3f} "
             f"ms ({card})")
     del path, oct0, oct1, L0
+
+    # ---- 2d. kernel B6 ------------------------------------------------------
+    # the reduced pose systems BA solves: the scene's own windows at LM's
+    # first iteration, BA's device_batch of random systems, the
+    # loop-closure mini-bundle's one 12x12 system, and a failing system
+    calib_t = torch.tensor(scene.calib, device="cuda")
+    batch = scene_windows(frontend, bundle, TrackStore, L, R, scene, cfg)
+    S_scene, g_scene = reduced_systems(
+        ba, *(torch.as_tensor(a, device="cuda") for a in (
+            batch.poses0, batch.points0, batch.cam_idx.astype(np.int64),
+            batch.lm_idx.astype(np.int64), batch.meas, batch.w)), calib_t)
+    N6 = 6 * cfg.bundle.max_poses
+    S_64, g_64 = spd_systems(gen, 64, N6)
+    S_12, g_12 = spd_systems(gen, 1, 12)
+    S_bad, g_bad = spd_systems(gen, 8, N6, bad=(3,))
+    b6_err = max(check_b6(ck, S_scene, g_scene, "scene windows"),
+                 check_b6(ck, S_64, g_64, "device batch"),
+                 check_b6(ck, S_12, g_12, "loop-closure pair"),
+                 check_b6(ck, S_bad, g_bad, "one failing", bad=(3,)))
+    # by shape: (kernel, plain, solve_ex, bound) ms
+    b6_at = {}
+    for label, S_, g_ in (("device batch", S_64, g_64),
+                          ("scene windows", S_scene, g_scene),
+                          ("loop-closure pair", S_12, g_12)):
+        b6_at[tuple(S_.shape)] = t = (
+            median_ms(lambda: ck.cholesky_solve(S_, g_)),
+            median_ms(lambda: ck.cholesky_solve_plain(S_, g_)),
+            median_ms(lambda: torch.linalg.solve_ex(S_, g_)),
+            b6_bound(S_, g_)[0])
+        log(f"[B6] {label} {tuple(S_.shape)} median of {TIMING_RUNS}: kernel "
+            f"{t[0]:.4f} ms, plain (cholesky_ex + cholesky_solve) {t[1]:.4f} "
+            f"ms, solve_ex {t[2]:.4f} ms, bound {t[3]:.5f} ms ({card})")
+    b6_ms, b6_plain_ms, b6_lib_ms, _ = b6_at[tuple(S_64.shape)]
+    bounds["cholesky_solve"] = b6_bound(S_64, g_64)
+    del S_scene, S_64, S_bad
 
     # ---- 3. kernel B2 -------------------------------------------------------
     # every call of the main path: the frontend's stereo and temporal
@@ -595,6 +925,11 @@ def main(argv=None) -> int:
             f"{b2_times[label][0]:.3f} ms, plain {b2_times[label][1]:.3f} "
             f"ms ({card})")
     b2_ms, b2_plain_ms = b2_times["stereo"]
+    # descriptors, masks and positions in; row and column (dist, idx) out
+    n_out = chunk * K * (4 + 8) * 2
+    bounds["mutual_nearest"] = bound(nbytes(*stereo) + n_out,
+                                     2 * chunk * K * K * stereo[0].shape[-1],
+                                     "bf16")
 
     # ---- 3b. kernel B2 on the Hamming calls ---------------------------------
     # the AKAZE path's matching: binarized descriptors (+-1 signs) under
@@ -637,24 +972,59 @@ def main(argv=None) -> int:
          "replaces": "slam_tpu/ops/pallas_kernels.py:785",
          "max_abs_err": b5_err, "ms": b5_times["octave 0"][0],
          "plain_ms": b5_times["octave 0"][1]},
+        {"name": "cholesky_solve", "route": "cuda",
+         "source": "slam_tpu_torch/csrc/cholesky_solve.cu",
+         "replaces": "slam_tpu/ops/pallas_kernels.py:925",
+         "max_abs_err": b6_err, "ms": b6_ms, "plain_ms": b6_plain_ms,
+         "library_ms": b6_lib_ms},
     ]
+    for k in kernels:
+        k["bound_ms"], k["bound_by"] = bounds[k["name"]]
+        k.setdefault("library_ms", None)
     if args.kernels_only:
         # no main-path run, so no launch counts to report
         log(json.dumps({"ok": True, "kernels_only": True}))
         return 0
 
     # ---- 4. main path -------------------------------------------------------
-    # the default SlamConfig()
-    launches = drive_path(pipeline, ck, L, R, scene, cfg,
-                          ("detect_maps", "mutual_nearest"), "path", card)
+    # the default SlamConfig(); ba._spd_solve is wrapped to count the
+    # measured pass's LM iterations by shape, each of which launches B6 once
+    solves = collections.Counter()
+    b6_solve = ba._spd_solve
+
+    def counting(S, g):
+        solves[tuple(S.shape)] += 1
+        return b6_solve(S, g)
+
+    with solving_with(ba, counting):
+        main_path = drive_path(
+            pipeline, ck, L, R, scene, cfg,
+            ("detect_maps", "mutual_nearest", "cholesky_solve"), "path", card,
+            on_reset=solves.clear)
+    b6_launches = main_path["launches"]["cholesky_solve"]
+    if b6_launches != sum(solves.values()):
+        fail(f"path: {b6_launches} B6 launches for {dict(solves)} LM "
+             f"iterations")
+    # B6's time on the path: each shape's launches at phase 2d's times
+    for shape in solves:
+        if shape not in b6_at:
+            fail(f"path: B6 at {shape}, a shape phase 2d did not time")
+    k_ms, p_ms, lib_ms, b_ms = (sum(n * b6_at[s_][i]
+                                    for s_, n in solves.items())
+                                for i in range(4))
+    log(f"[B6] main path: launches by shape {dict(solves)} (one per LM "
+        f"iteration of BA, {main_path['windows']} windows, and of loop "
+        f"closure); at phase 2d's times: kernel {k_ms:.3f} ms, plain "
+        f"{p_ms:.3f} ms, solve_ex {lib_ms:.3f} ms, bound {b_ms:.4f} ms, "
+        f"kernel - bound {k_ms - b_ms:.3f} ms ({card})")
 
     # ---- 4b. the AKAZE path -------------------------------------------------
     cfg_akaze = SlamConfig(features=FeatureConfig(detector="akaze"),
                            matching=MatchConfig(norm="hamming"))
     launches_akaze = drive_path(
         pipeline, ck, L, R, scene, cfg_akaze,
-        ("akaze_octave", "orientation_maps", "mutual_nearest"),
-        "path akaze", card)
+        ("akaze_octave", "orientation_maps", "mutual_nearest",
+         "cholesky_solve"), "path akaze", card)["launches"]
 
     # ---- 4c. multiscale Harris ----------------------------------------------
     # B1 at every pyramid level; the level shapes are recorded through the
@@ -692,16 +1062,90 @@ def main(argv=None) -> int:
         f"{ate:.4f} m, pose failures {fr.num_pose_failures}; B1 shapes "
         f"{sorted(shapes)}, launches {dict(ck.LAUNCHES)} ({card})")
 
+    # ---- 4d. the main path on the library solve -----------------------------
+    # BA's and loop closure's reduced systems go to B6's plain version
+    # (cholesky_ex + cholesky_solve, cuSOLVER) instead of B6
+    with solving_with(ba, ck.cholesky_solve_plain):
+        lib_path = drive_path(
+            pipeline, ck, L, R, scene, cfg, ("detect_maps", "mutual_nearest"),
+            "path library solve", card, plain_ok=("cholesky_solve",))
+    if (lib_path["launches"]["cholesky_solve"]
+            or lib_path["plain"]["cholesky_solve"] != b6_launches):
+        fail(f"path library solve: B6 launches "
+             f"{lib_path['launches']['cholesky_solve']}, library solves "
+             f"{lib_path['plain']['cholesky_solve']} (phase 4: {b6_launches} "
+             f"B6 launches)")
+    if lib_path["closures"] != main_path["closures"]:
+        fail(f"path library solve: closures {lib_path['closures']}, phase 4 "
+             f"{main_path['closures']}")
+    if set(lib_path["ates"]) != set(main_path["ates"]):
+        fail(f"path library solve: ATE of stages {sorted(lib_path['ates'])}, "
+             f"phase 4 {sorted(main_path['ates'])}")
+    d_ate = {k: abs(lib_path["ates"][k] - v)
+             for k, v in main_path["ates"].items()}
+    if max(d_ate.values()) > 0.01:
+        fail(f"path library solve: ATE {lib_path['ates']} vs phase 4 "
+             f"{main_path['ates']} (limit 0.01 m apart)")
+    log(f"[path library solve] {lib_path['plain']['cholesky_solve']} library "
+        f"solves in place of B6's {b6_launches} launches; closures "
+        f"{lib_path['closures']} as in phase 4; ATE differences "
+        f"{json.dumps(d_ate)} m; bundles stage "
+        f"{lib_path['timings']['bundles']:.3f} s vs "
+        f"{main_path['timings']['bundles']:.3f} s on B6 ({card})")
+
+    # ---- 4e. the BA engine A/B ----------------------------------------------
+    # optimize_bundle at the default capacities and device_batch, solving
+    # on the library and on B6 in turns (library, B6, B6, library)
+    bc = cfg.bundle
+    win = synthetic_windows(se3, stereo_ops, calib_t, 64, bc.max_poses,
+                            bc.max_landmarks, bc.max_obs, SEED)
+    cost0 = float(ba._cost(*win, calib_t).median())
+    solvers = {"library": ck.cholesky_solve_plain, "B6": b6_solve}
+    ab = {side: [] for side in solvers}
+    costs, splits = {}, {}
+    for side in ("library", "B6", "B6", "library"):
+        with solving_with(ba, solvers[side]):
+            ab[side].append(median_ms(
+                lambda: ba.optimize_bundle(*win, calib_t, iters=bc.lm_iters),
+                runs=5))
+            cost = ba.optimize_bundle(*win, calib_t, iters=bc.lm_iters)[2]
+            costs[side] = float(cost.median())
+            splits[side] = lm_split(ba, se3, *win, calib_t)
+    for side, c in costs.items():
+        if not np.isfinite(c) or c >= cost0:
+            fail(f"BA A/B {side}: median final cost {c} (initial {cost0})")
+    if abs(costs["B6"] - costs["library"]) > 0.01 * costs["library"]:
+        fail(f"BA A/B: median final cost on B6 {costs['B6']} vs "
+             f"{costs['library']} on the library (limit 1% apart)")
+    log(f"[BA A/B] optimize_bundle (64, P={bc.max_poses}, "
+        f"L={bc.max_landmarks}, M={bc.max_obs}), {bc.lm_iters} iterations, "
+        f"median of 5 per turn: library (cholesky_ex + cholesky_solve) "
+        f"{ab['library']} ms, B6 {ab['B6']} ms; median cost {cost0:.1f} -> "
+        f"library {costs['library']:.4f}, B6 {costs['B6']:.4f} ({card})")
+    for side, split in splits.items():
+        log(f"[BA split] one LM iteration on {side} (torch.profiler, device "
+            f"drained between phases, median of 5): "
+            + "; ".join(f"{n} host {split[n]['host_ms']:.3f} ms, device busy "
+                        f"{split[n]['busy_ms']:.3f} ms, "
+                        f"{split[n]['events']:.0f} device events, "
+                        f"{split[n]['blocking']:.0f} blocking calls"
+                        for n in LM_PHASES)
+            + f"; iteration {split['wall_ms']:.3f} ms, device busy "
+            f"{sum(split[n]['busy_ms'] for n in LM_PHASES):.3f} ms ({card})")
+
     # ---- 5. profile (optional) ---------------------------------------------
     if args.profile:
         profile_path(pipeline, L, R, scene.calib, cfg, args.profile, card)
         profile_path(pipeline, L, R, scene.calib, cfg_akaze, args.profile,
                      card, "_akaze")
 
-    if "jax" in sys.modules:
-        fail("JAX was imported")
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "slam_tpu"))
+    if foreign:
+        fail(f"modules of JAX or of the JAX package were imported: "
+             f"{foreign[:10]}")
     # each kernel's launches in the path that runs it; B4's in phase 2b
-    counts = dict(launches, orientation_maps=launches_akaze[
+    counts = dict(main_path["launches"], orientation_maps=launches_akaze[
         "orientation_maps"], akaze_octave=launches_akaze["akaze_octave"],
         harris_response=b4_launches)
     for k in kernels:

@@ -9,13 +9,15 @@ Layer map:
   ops/       tensor code: SE(3), stereo camera, features, matching,
              RANSAC, bundle adjustment, pose graph, and the hand-written
              CUDA kernels behind them (ops/cuda_kernels.py, csrc/)
-  models/    pipeline stages: frontend, bundles, pose graph, loop closure
-  utils/     numpy synthetic scenes
+  models/    pipeline stages: frontend, track store, bundles, pose graph,
+             loop closure
+  utils/     numpy synthetic scenes and trajectory metrics
+  config.py  SlamConfig (the JAX package's dataclasses and JSON form)
   pipeline.py  run_pipeline / evaluate
 
-The config (``slam_tpu.config``), the track store, the covariance graph
-and the metrics are shared with the JAX package: those modules are numpy
-only. This package never imports ``jax``.
+This package never imports ``jax`` nor any module of the JAX package:
+the numpy-only modules it needs from there (config, track store,
+metrics) are copies of its own.
 
 Importing the package sets the geometry precision policy once: float32
 matmuls and convolutions without TF32 (ops/precision.py).

@@ -1,3 +1,2 @@
 """Pipeline stages: frontend odometry, bundle adjustment, pose graph,
-loop closure. The track store is shared with the JAX package
-(``slam_tpu.models.trackstore``)."""
+loop closure, and the track store (a numpy copy of the JAX package's)."""

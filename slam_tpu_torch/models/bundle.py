@@ -23,13 +23,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from slam_tpu.config import BundleConfig, KeyframeConfig, SlamConfig
-from slam_tpu.models.trackstore import NO_ID, TrackStore
-from slam_tpu.utils import metrics
-
+from ..config import BundleConfig, KeyframeConfig, SlamConfig
 from ..ops import ba
 from ..ops.cuda_kernels import resolve_device
 from ..ops.stereo import backproject_np
+from ..utils import metrics
+from .trackstore import NO_ID, TrackStore
 
 
 # ---------------------------------------------------------------------------

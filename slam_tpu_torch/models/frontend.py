@@ -32,8 +32,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from slam_tpu.config import SlamConfig
-
+from ..config import SlamConfig
 from ..ops import (akaze, binary, cuda_kernels, features, matching, ransac,
                    stereo)
 

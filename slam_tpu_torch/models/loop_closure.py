@@ -25,12 +25,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from slam_tpu.config import LoopConfig, SlamConfig
-from slam_tpu.models.trackstore import TrackStore
-
+from ..config import LoopConfig, SlamConfig
 from ..ops import ba, matching, ransac, stereo
 from .frontend import _pair_correspondences
 from .pose_graph import PoseGraph
+from .trackstore import TrackStore
 
 SPEC_Q = 4  # query keyframes verified per batched call
 

@@ -18,16 +18,28 @@ workarounds and are not ported). ``index_add_`` on CUDA sums in a varying
 order, so results agree with the JAX package to float32 rounding, not
 bit for bit.
 
-The reduced pose system is factorized with ``torch.linalg.cholesky_ex``.
+Every reduced pose system is solved by kernel B6
+(``cuda_kernels.cholesky_solve``: a batched Cholesky factorization and
+both substitutions) on the card, and by its plain version
+(``cholesky_ex`` + ``cholesky_solve``) on the CPU. The JAX package takes
+its counterpart only under ``SLAM_TPU_CHOL_LANES=1`` on a TPU, with a
+batch of at least 32, ``N % 8 == 0`` and ``N <= 152`` (its lane and
+sublane tiling and its VMEM; ``slam_tpu/ops/ba.py:276-302``), and only
+under vmap. Here B6 has no switch and no such condition (on an H100 it
+is faster than cuSOLVER's pair at BA's shapes and in the BA engine,
+PERF.md); its only limit is ``slam_cholesky_max_n()``, above which the
+wrapper raises, and it also serves the loop-closure mini-bundle (N = 12,
+one system), as the port's ``optimize_bundle`` is always batched.
+
 A failed factorization gives a NaN step, which LM rejects (its cost is
-not finite), as the JAX package's NaN Cholesky does; it never raises.
+not finite), as the JAX package's default Cholesky does; it never raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import se3, stereo
+from . import cuda_kernels, se3, stereo
 
 
 def _outer3(Ja, Jb):
@@ -131,28 +143,37 @@ def _reduced_system(Hpp, Hll_inv, Wc, g_p, g_l):
 
 
 def _spd_solve(S, g):
-    """Batched Cholesky solve of S x = g; NaN where the factorization
-    fails (LM rejects that step)."""
-    Lc, info = torch.linalg.cholesky_ex(S)
-    x = torch.cholesky_solve(g[..., None], Lc)[..., 0]
-    return torch.where((info == 0)[:, None], x, torch.full_like(x, float("nan")))
+    """Batched Cholesky solve of S x = g by kernel B6; NaN where the
+    factorization fails (LM rejects that step)."""
+    return cuda_kernels.cholesky_solve(S, g)
 
 
-def _schur_solve(J_pose, J_lm, r, cam_idx, lm_idx, P, L, lam):
-    """Damped normal equations by landmark marginalization. lam (B,).
-    Returns (delta_poses (B, P, 6), delta_points (B, L, 3))."""
-    g_p, g_l, Hpp, Hll, Wc = _build_blocks(J_pose, J_lm, r, cam_idx, lm_idx,
-                                           P, L)
+def _damped_system(blocks, lam):
+    """The LM-damped reduced system from the blocks of _build_blocks:
+    (S (B, 6P, 6P), ghat (B, 6P), Bm, Hll_inv (B, L, 3, 3))."""
+    g_p, g_l, Hpp, Hll, Wc = blocks
     dt, dev = Hpp.dtype, Hpp.device
     eye6 = torch.eye(6, dtype=dt, device=dev)
     eye3 = torch.eye(3, dtype=dt, device=dev)
     Hpp_d = Hpp + lam[:, None, None, None] * eye6
     Hll_inv = _inv3x3(Hll + lam[:, None, None, None] * eye3 + 1e-8 * eye3)
     S, ghat, Bm = _reduced_system(Hpp_d, Hll_inv, Wc, g_p, g_l)
+    return S, ghat, Bm, Hll_inv
+
+
+def _back_substitute(dp, Bm, Hll_inv, g_l):
+    """Landmark steps (B, L, 3) from the pose step dp (B, 6P)."""
+    Wt_dp = (Bm.transpose(1, 2) @ dp[..., None])[..., 0].reshape(g_l.shape)
+    return -se3.mv3(Hll_inv, g_l + Wt_dp)
+
+
+def _schur_solve(J_pose, J_lm, r, cam_idx, lm_idx, P, L, lam):
+    """Damped normal equations by landmark marginalization. lam (B,).
+    Returns (delta_poses (B, P, 6), delta_points (B, L, 3))."""
+    blocks = _build_blocks(J_pose, J_lm, r, cam_idx, lm_idx, P, L)
+    S, ghat, Bm, Hll_inv = _damped_system(blocks, lam)
     dp = -_spd_solve(S, ghat)
-    Wt_dp = (Bm.transpose(1, 2) @ dp[..., None])[..., 0].reshape(-1, L, 3)
-    dl = -se3.mv3(Hll_inv, g_l + Wt_dp)
-    return dp.reshape(-1, P, 6), dl
+    return dp.reshape(-1, P, 6), _back_substitute(dp, Bm, Hll_inv, blocks[1])
 
 
 def _cost(poses, points, cam_idx, lm_idx, meas, w, calib):
@@ -168,6 +189,21 @@ def _huber_weights(r, delta: float):
     return torch.sqrt(delta / torch.clamp(nrm, min=delta))
 
 
+def _linearize(poses, points, cam_idx, lm_idx, meas, w, calib,
+               huber_delta: float = 0.0):
+    """Residuals and Jacobians at the current state, IRLS-reweighted when
+    ``huber_delta > 0``: (J_pose, J_lm, r)."""
+    T, X = _gather_obs(poses, points, cam_idx, lm_idx)
+    r, Xc = _residuals_tx(T, X, meas, w, calib)
+    w_eff = w
+    if huber_delta > 0.0:
+        hw = _huber_weights(r, huber_delta)
+        r = r * hw[..., None]
+        w_eff = w * hw
+    J_pose, J_lm = _jacobians_tx(T, X, w_eff, calib, Xc)
+    return J_pose, J_lm, r
+
+
 def optimize_bundle(poses, points, cam_idx, lm_idx, meas, w, calib,
                     iters: int = 20, lam0: float = 1e-4,
                     huber_delta: float = 0.0):
@@ -179,14 +215,8 @@ def optimize_bundle(poses, points, cam_idx, lm_idx, meas, w, calib,
     cost = _cost(poses, points, cam_idx, lm_idx, meas, w, calib)
     lam = torch.full_like(cost, lam0)
     for _ in range(iters):
-        T, X = _gather_obs(poses, points, cam_idx, lm_idx)
-        r, Xc = _residuals_tx(T, X, meas, w, calib)
-        w_eff = w
-        if huber_delta > 0.0:
-            hw = _huber_weights(r, huber_delta)
-            r = r * hw[..., None]
-            w_eff = w * hw
-        J_pose, J_lm = _jacobians_tx(T, X, w_eff, calib, Xc)
+        J_pose, J_lm, r = _linearize(poses, points, cam_idx, lm_idx, meas, w,
+                                     calib, huber_delta)
         dp, dl = _schur_solve(J_pose, J_lm, r, cam_idx, lm_idx, P, L, lam)
         new_poses = se3.retract(poses, dp)
         new_points = points + dl
@@ -236,9 +266,8 @@ def pose_covariances(poses, points, cam_idx, lm_idx, meas, w, calib):
     the diagonal blocks of the inverse undamped Gauss-Newton Schur
     complement. Row 0 is zero (the gauge)."""
     B, P, L = poses.shape[0], poses.shape[1], points.shape[1]
-    T, X = _gather_obs(poses, points, cam_idx, lm_idx)
-    r, Xc = _residuals_tx(T, X, meas, w, calib)
-    J_pose, J_lm = _jacobians_tx(T, X, w, calib, Xc)
+    J_pose, J_lm, r = _linearize(poses, points, cam_idx, lm_idx, meas, w,
+                                 calib)
     g_p, g_l, Hpp, Hll, Wc = _build_blocks(J_pose, J_lm, r, cam_idx, lm_idx,
                                            P, L)
     eye3 = torch.eye(3, dtype=Hpp.dtype, device=Hpp.device)

@@ -1,6 +1,6 @@
-"""Hand-written CUDA kernels of the frontend, with their plain versions.
+"""Hand-written CUDA kernels, with their plain versions.
 
-Counterpart of ``slam_tpu/ops/pallas_kernels.py``. Five kernels:
+Counterpart of ``slam_tpu/ops/pallas_kernels.py``. Six kernels:
 
   B1 ``detect_maps``       Harris response, 5x5 NMS map and 8 orientation
                            cell maps in one pass (csrc/detect_maps.cu);
@@ -14,7 +14,11 @@ Counterpart of ``slam_tpu/ops/pallas_kernels.py``. Five kernels:
                            variant of B1's template; no pipeline caller;
   B5 ``akaze_octave``      one AKAZE octave: PM-g2 diffusion steps,
                            sigma^4 det(Hessian) and 5x5 NMS in one pass
-                           (csrc/akaze_octave.cu).
+                           (csrc/akaze_octave.cu);
+  B6 ``cholesky_solve``    batched Cholesky factorization and both
+                           substitutions of bundle adjustment's reduced
+                           pose systems (csrc/cholesky_solve.cu); every
+                           LM iteration of ops/ba.py.
 
 Each has a plain PyTorch version with the same signature (the wrapper's
 name + ``_plain``). A wrapper takes the plain version only for tensors on
@@ -44,13 +48,14 @@ from . import akaze, features
 BIG = 1e30
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(_PKG / "csrc" / n for n in (
-    "detect_maps.cu", "mutual_nearest.cu", "akaze_octave.cu"))
+    "detect_maps.cu", "mutual_nearest.cu", "akaze_octave.cu",
+    "cholesky_solve.cu"))
 BUILD_DIR = _PKG.parent / "build" / "slam_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNELS = ("detect_maps", "mutual_nearest", "orientation_maps",
-           "harris_response", "akaze_octave")
+           "harris_response", "akaze_octave", "cholesky_solve")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 _lib = None
@@ -112,9 +117,12 @@ def build() -> ctypes.CDLL:
     lib.slam_orientation_maps.argtypes = [p, p, i, i, i, p, p]
     lib.slam_akaze_octave.argtypes = [p, p, p, p, p, i, i, i, i, f, f, p]
     lib.slam_akaze_max_steps.argtypes = []
+    lib.slam_cholesky_solve.argtypes = [p, p, p, i, i, p]
+    lib.slam_cholesky_max_n.argtypes = []
     for fn in (lib.slam_detect_maps, lib.slam_harris_response,
                lib.slam_orientation_maps, lib.slam_akaze_octave,
-               lib.slam_akaze_max_steps):
+               lib.slam_akaze_max_steps, lib.slam_cholesky_solve,
+               lib.slam_cholesky_max_n):
         fn.restype = i
     lib.slam_mutual_nearest.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, f,
                                         f, p, p, p, p, p, p]
@@ -402,3 +410,51 @@ def mutual_nearest(desc_a, desc_b, valid_a, valid_b, xy_a=None, xy_b=None,
     LAUNCHES["mutual_nearest"] += 1
     return rdist, ridx, cdist, cidx
 
+
+# ---------------------------------------------------------------------------
+# B6: batched Cholesky solve (csrc/cholesky_solve.cu)
+# ---------------------------------------------------------------------------
+
+def cholesky_solve_plain(S: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain version of B6: S x = g by ``torch.linalg.cholesky_ex`` +
+    ``cholesky_solve``, with a NaN row wherever the factorization fails."""
+    PLAIN_CALLS["cholesky_solve"] += 1
+    Lc, info = torch.linalg.cholesky_ex(S)
+    x = torch.cholesky_solve(g[..., None], Lc)[..., 0]
+    return torch.where((info == 0)[:, None], x, torch.full_like(x, float("nan")))
+
+
+def cholesky_solve(S: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Kernel B6: S (B, N, N) float32 SPD (its lower triangle is read) and
+    g (B, N) float32 -> x (B, N) float32 with S x = g; a system whose
+    factorization meets a pivot that is not positive or not finite gets
+    an all-NaN row (pallas_kernels.cholesky_solve_lanes, which clamps such
+    a pivot instead). Raises ValueError for N above what one block's
+    shared memory holds (``slam_cholesky_max_n``, 238 on an H100)."""
+    _require(S.dim() == 3 and S.shape[1] == S.shape[2],
+             f"cholesky_solve: S must be (B, N, N), got {tuple(S.shape)}")
+    B, N = S.shape[:2]
+    _require(tuple(g.shape) == (B, N), f"cholesky_solve: g must be "
+             f"({B}, {N}), got {tuple(g.shape)}")
+    _require(S.dtype == torch.float32 and g.dtype == torch.float32,
+             f"cholesky_solve: expected float32, got {S.dtype}, {g.dtype}")
+    _require(S.device == g.device, f"cholesky_solve: S on {S.device}, g on "
+             f"{g.device}")
+    if S.device.type == "cpu":
+        return cholesky_solve_plain(S, g)
+    _require(S.device.type == "cuda",
+             f"cholesky_solve: unsupported device {S.device}")
+    _require(S.is_contiguous() and g.is_contiguous(),
+             "cholesky_solve: inputs must be contiguous")
+    _require(B > 0 and N > 0, "cholesky_solve: empty input")
+    lib = build()
+    max_n = lib.slam_cholesky_max_n()
+    _require(N <= max_n, f"cholesky_solve: N={N} above the {max_n} one "
+             f"block's shared memory holds")
+    x = torch.empty_like(g)
+    with torch.cuda.device(S.device):
+        err = lib.slam_cholesky_solve(S.data_ptr(), g.data_ptr(),
+                                      x.data_ptr(), B, N, _stream(S))
+    _check(err, "cholesky_solve")
+    LAUNCHES["cholesky_solve"] += 1
+    return x

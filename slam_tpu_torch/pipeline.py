@@ -3,7 +3,7 @@
 Counterpart of ``slam_tpu/pipeline.py``. Stages:
 
   1. frontend odometry  -> FrontendResult    (models/frontend.py)
-  2. track store        -> TrackStore        (slam_tpu.models.trackstore)
+  2. track store        -> TrackStore        (models/trackstore.py)
   3. windowed BA        -> BundleResult      (models/bundle.py)
   4. pose graph         -> PoseGraph         (models/pose_graph.py)
   5. loop closure       -> PoseGraph + closures (models/loop_closure.py)
@@ -25,15 +25,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from slam_tpu.config import SlamConfig
-from slam_tpu.models.trackstore import TrackStore
-from slam_tpu.utils import metrics
-
+from .config import SlamConfig
 from .models import bundle as bundle_mod
 from .models import frontend as frontend_mod
 from .models import loop_closure as lc_mod
 from .models.pose_graph import PoseGraph
+from .models.trackstore import TrackStore
 from .ops.cuda_kernels import resolve_device
+from .utils import metrics
 
 
 @dataclass

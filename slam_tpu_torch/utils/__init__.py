@@ -1,2 +1,1 @@
-"""Synthetic scenes (numpy). Metrics are shared with the JAX package
-(``slam_tpu.utils.metrics``)."""
+"""Synthetic scenes and trajectory metrics (numpy)."""

@@ -12,16 +12,18 @@ import numpy as np
 import pytest
 import torch
 
-from slam_tpu.config import FeatureConfig, MatchConfig, SlamConfig
 from slam_tpu.ops import akaze as jakaze
 from slam_tpu.ops import binary as jbinary
 from slam_tpu.ops import features as jfeat
 from slam_tpu.ops import pallas_kernels as pk
 from slam_tpu.utils import synthetic as jsynth
+from slam_tpu_torch.config import FeatureConfig, MatchConfig, SlamConfig
 from slam_tpu_torch.models import frontend
 from slam_tpu_torch.ops import akaze, binary
 from slam_tpu_torch.ops import cuda_kernels as ck
 from slam_tpu_torch.ops import features, matching
+
+from tests.test_torch_slice import jax_config
 
 torch.set_num_threads(2)
 
@@ -234,7 +236,8 @@ def test_detect_describe_dispatch(frames, detector, levels, norm):
                      matching=MatchConfig(norm=norm))
     imgs = (frames * 255).astype(np.uint8)
     out_t = frontend._detect_describe(t(imgs), cfg)
-    out_j = jfrontend._detect_describe(jnp.asarray(imgs), cfg)
+    out_j = jfrontend._detect_describe(jnp.asarray(imgs),
+                                       jax_config(cfg))
     assert out_t["desc"].shape == (2, 256, 128)
     if norm == "hamming":
         assert set(np.unique(out_t["desc"].numpy())) == {-1.0, 1.0}

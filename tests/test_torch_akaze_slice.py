@@ -27,12 +27,12 @@ import pytest
 import torch
 
 from slam_tpu import pipeline as jpipe
-from slam_tpu.config import MatchConfig
 from slam_tpu.utils import synthetic as jsynth
 from slam_tpu_torch import pipeline
+from slam_tpu_torch.config import MatchConfig
 from slam_tpu_torch.utils import synthetic
 
-from tests.test_torch_slice import CFG, rot_deg
+from tests.test_torch_slice import CFG, jax_config, rot_deg
 
 torch.set_num_threads(2)
 
@@ -49,7 +49,8 @@ def runs():
                               hw=(240, 640))
     L, R = jsynth.render_sequence(scene)
     calib = np.asarray(scene.calib)
-    res_j = jpipe.run_pipeline(L, R, calib, AKAZE_CFG, verbose=False)
+    res_j = jpipe.run_pipeline(L, R, calib, jax_config(AKAZE_CFG),
+                               verbose=False)
     res_t = pipeline.run_pipeline(L, R, calib, AKAZE_CFG, verbose=False,
                                   device="cpu")
     return np.asarray(scene.T_w2c), res_j, res_t

@@ -15,19 +15,22 @@ import pytest
 import torch
 
 from slam_tpu import pipeline as jpipe
-from slam_tpu.config import (BundleConfig, FeatureConfig, KeyframeConfig,
-                             LoopConfig, RansacConfig, RuntimeConfig,
-                             SlamConfig)
 from slam_tpu.models import bundle as jbundle
 from slam_tpu.models import loop_closure as jlc
 from slam_tpu.models.pose_graph import PoseGraph as JPoseGraph
-from slam_tpu.models.trackstore import TrackStore
+from slam_tpu.models.trackstore import TrackStore as JTrackStore
 from slam_tpu.ops import ba as jba
 from slam_tpu.utils import synthetic as jsynth
 from slam_tpu_torch import convert
+from slam_tpu_torch.config import (BundleConfig, FeatureConfig,
+                                   KeyframeConfig, LoopConfig, RansacConfig,
+                                   RuntimeConfig, SlamConfig)
 from slam_tpu_torch.models import bundle, loop_closure
 from slam_tpu_torch.models.pose_graph import PoseGraph
+from slam_tpu_torch.models.trackstore import TrackStore
 from slam_tpu_torch.ops import ba
+
+from tests.test_torch_slice import jax_config
 
 torch.set_num_threads(2)
 
@@ -51,7 +54,7 @@ def jax_run():
                               hw=(160, 320))
     L, R = jsynth.render_sequence(scene)
     calib = np.asarray(scene.calib)
-    res = jpipe.run_pipeline(L, R, calib, CFG, verbose=False)
+    res = jpipe.run_pipeline(L, R, calib, jax_config(CFG), verbose=False)
     assert res.closures, "the reference run must close the loop"
     return calib, res
 
@@ -67,10 +70,11 @@ def rot_deg(A, B):
 def test_windows_identical_to_jax(jax_run):
     calib, res = jax_run
     db, T = res.db, res.frontend.T_w2c
+    jcfg = jax_config(CFG)
     kfs = bundle.select_keyframes(db, T, CFG.keyframes)
-    assert kfs == jbundle.select_keyframes(db, T, CFG.keyframes)
+    assert kfs == jbundle.select_keyframes(db, T, jcfg.keyframes)
     bt = bundle.build_windows(db, T, kfs, CFG.bundle)
-    bj = jbundle.build_windows(db, T, kfs, CFG.bundle)
+    bj = jbundle.build_windows(db, T, kfs, jcfg.bundle)
     bundle.init_landmarks(bt, calib)
     jbundle.init_landmarks(bj, calib)
     for f in dataclasses.fields(bt):
@@ -240,3 +244,25 @@ def test_converted_frontend_builds_the_same_track_store(jax_run):
     assert tuple(fe.desc.shape) == res.frontend.desc.shape
     db = TrackStore.from_frontend(fe)
     np.testing.assert_array_equal(db.track_ids, res.db.track_ids)
+
+
+@pytest.mark.parametrize("use_native", [True, False])
+def test_port_track_store_equals_jax(jax_run, use_native, tmp_path):
+    """The port's TrackStore (numpy chaining only) equals the JAX
+    package's, built natively or in numpy, array for array; its queries
+    and its npz agree too."""
+    _, res = jax_run
+    db = TrackStore.from_frontend(res.frontend)
+    dj = JTrackStore.from_frontend(res.frontend, use_native=use_native)
+    for f in dataclasses.fields(dj):
+        a, b = getattr(db, f.name), getattr(dj, f.name)
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b), f.name)
+        assert np.asarray(a).dtype == np.asarray(b).dtype, f.name
+    assert db.stats() == dj.stats()
+    np.testing.assert_array_equal(db.tracks_alive_between(5, 20),
+                                  dj.tracks_alive_between(5, 20))
+    np.testing.assert_array_equal(db.connectivity(), dj.connectivity())
+    db.check_consistency()
+    dj.save(tmp_path / "tracks.npz")
+    back = TrackStore.load(tmp_path / "tracks.npz")
+    np.testing.assert_array_equal(back.track_offsets, dj.track_offsets)

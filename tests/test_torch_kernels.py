@@ -1,5 +1,6 @@
 """Kernels B1 (detect_maps), B2 (mutual_nearest), B3 (orientation_maps),
-B4 (harris_response) and B5 (akaze_octave) of the port.
+B4 (harris_response), B5 (akaze_octave) and B6 (cholesky_solve) of the
+port.
 
 On the CPU the wrappers run their plain versions, which are held here
 against the JAX package's Pallas kernels in interpret mode. The tests
@@ -156,6 +157,24 @@ def test_mutual_match_matches_pallas_wrapper():
 # wrappers on the CPU: dispatch, counters, input checks
 # ---------------------------------------------------------------------------
 
+def spd_systems(seed, B, N, bad=()):
+    """SPD systems with the gauge rows (tests/test_pallas_parity.py's
+    construction); the systems in ``bad`` get an eigenvalue of -1 below
+    the gauge block."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((B, N, N))
+    S = A @ np.transpose(A, (0, 2, 1)) + 3.0 * np.eye(N)
+    for b in bad:
+        low = np.linalg.eigvalsh(S[b, 6:, 6:]).min()
+        S[b, 6:, 6:] -= (low + 1.0) * np.eye(N - 6)
+    S[:, :6, :] = 0.0
+    S[:, :, :6] = 0.0
+    S[:, range(6), range(6)] = 1.0
+    g = rng.standard_normal((B, N))
+    g[:, :6] = 0.0
+    return S.astype(np.float32), g.astype(np.float32)
+
+
 def test_cpu_tensors_take_the_plain_versions():
     ck.reset_counters()
     x = t(images(3, 1, 40, 50))
@@ -165,6 +184,7 @@ def test_cpu_tensors_take_the_plain_versions():
     ck.akaze_octave(x, torch.ones(1))
     a, b, va, vb, xa, xb = desc_sets(3, 2, 30, 40)
     ck.mutual_nearest(t(a), t(b), t(va), t(vb))
+    ck.cholesky_solve(*(t(v) for v in spd_systems(3, 2, 12)))
     assert ck.PLAIN_CALLS == dict.fromkeys(ck.KERNELS, 1)
     assert ck.LAUNCHES == dict.fromkeys(ck.KERNELS, 0)
 
@@ -199,6 +219,16 @@ def test_mutual_nearest_rejects_bad_input(case):
                        vb.to("meta"))}[case]
     with pytest.raises(ValueError):
         ck.mutual_nearest(*args)
+
+
+@pytest.mark.parametrize("case", ["shape", "rhs", "dtype", "device"])
+def test_cholesky_solve_rejects_bad_input(case):
+    S, g = (t(v) for v in spd_systems(4, 2, 12))
+    args = {"shape": (S[:, :, :6], g), "rhs": (S, g[:, :6]),
+            "dtype": (S.double(), g.double()),
+            "device": (S.to("meta"), g.to("meta"))}[case]
+    with pytest.raises(ValueError):
+        ck.cholesky_solve(*args)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -319,6 +349,53 @@ def test_cuda_akaze_octave_rejects_too_many_steps(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 144, 144), (1, 12, 12), (7, 48, 48)])
+def test_cuda_cholesky_solve_matches_plain(cuda, shape):
+    """B6 against the float64 solution: its error relative to max |x| per
+    system at most 4x the plain version's + 1e-6; one launch."""
+    S, g = (t(v, device=cuda) for v in spd_systems(9, shape[0], shape[1]))
+    ck.reset_counters()
+    x_k = ck.cholesky_solve(S, g)
+    assert ck.LAUNCHES["cholesky_solve"] == 1
+    x_p = ck.cholesky_solve_plain(S, g)
+    x_64 = torch.linalg.solve(S.double(), g.double())
+    torch.cuda.synchronize()
+    scale = x_64.abs().amax(-1)
+    e_k = float(((x_k - x_64).abs().amax(-1) / scale).max())
+    e_p = float(((x_p - x_64).abs().amax(-1) / scale).max())
+    assert e_k <= 4.0 * e_p + 1e-6, (e_k, e_p)
+
+
+@pytest.mark.cuda
+def test_cuda_cholesky_solve_nan_row(cuda):
+    """A system that is not positive definite gets an all-NaN row, as in
+    the plain version; the other rows equal B6's solve of them alone."""
+    S, g = (t(v, device=cuda) for v in spd_systems(10, 8, 48, bad=(3,)))
+    x = ck.cholesky_solve(S, g)
+    x_p = ck.cholesky_solve_plain(S, g)
+    keep = [0, 1, 2, 4, 5, 6, 7]
+    x_rest = ck.cholesky_solve(S[keep].contiguous(), g[keep].contiguous())
+    torch.cuda.synchronize()
+    nan_rows = torch.isnan(x).all(-1).nonzero().flatten().tolist()
+    assert nan_rows == [3]
+    assert torch.isnan(x_p[3]).all()
+    assert torch.equal(x[keep], x_rest)
+
+
+@pytest.mark.cuda
+def test_cuda_cholesky_solve_rejects_large_n(cuda):
+    top = ck.build().slam_cholesky_max_n()
+    assert top >= 144
+    S = torch.eye(top + 1, device=cuda)[None].contiguous()
+    g = torch.ones((1, top + 1), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ck.cholesky_solve(S, g)
+    x = ck.cholesky_solve(S[:, :top, :top].contiguous(), g[:, :top])
+    torch.cuda.synchronize()
+    assert torch.equal(x, torch.ones_like(x))
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_reject_non_contiguous(cuda):
     x = torch.rand((2, 40, 60), device=cuda).transpose(1, 2)
     with pytest.raises(ValueError):
@@ -327,15 +404,19 @@ def test_cuda_wrappers_reject_non_contiguous(cuda):
     v = torch.ones((1, 8), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):
         ck.mutual_nearest(a, a, v, v)
+    S = torch.rand((2, 12, 12), device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError):
+        ck.cholesky_solve(S, torch.ones((2, 12), device=cuda))
 
 
 @pytest.mark.cuda
 def test_cuda_slice_runs_through_the_kernels(cuda):
-    """A small scene through run_pipeline on the card: both kernels
-    launched, no plain version run."""
-    from slam_tpu.config import (BundleConfig, FeatureConfig,
-                                 KeyframeConfig, RuntimeConfig, SlamConfig)
+    """A small scene through run_pipeline on the card: B1, B2 and, in
+    every LM iteration of BA, B6 launched; no plain version run."""
     from slam_tpu_torch import pipeline
+    from slam_tpu_torch.config import (BundleConfig, FeatureConfig,
+                                       KeyframeConfig, RuntimeConfig,
+                                       SlamConfig)
     from slam_tpu_torch.utils import synthetic
 
     scene = synthetic.make_scene(seed=2, num_frames=12, num_landmarks=3000,
@@ -351,5 +432,7 @@ def test_cuda_slice_runs_through_the_kernels(cuda):
                                 run_loop_closure=False, device=cuda)
     assert ck.LAUNCHES["detect_maps"] == 2
     assert ck.LAUNCHES["mutual_nearest"] == 4
+    assert ck.LAUNCHES["cholesky_solve"] > 0
+    assert ck.LAUNCHES["cholesky_solve"] % cfg.bundle.lm_iters == 0
     assert not any(ck.PLAIN_CALLS.values())
     assert np.isfinite(res.T_frontend).all()

@@ -5,8 +5,13 @@ The JAX package renders the scene and both packages get the same numpy
 images. The packages draw different RANSAC hypotheses (jax.random vs a
 torch.Generator), so frame poses differ at the inlier-set margin; those
 differences chain along the trajectory. The bounds below state that.
+
+The port runs under its own config (``slam_tpu_torch.config``), the JAX
+package under the same config read back through its own module.
 """
 
+import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -17,14 +22,15 @@ import numpy as np
 import pytest
 import torch
 
+from slam_tpu import config as jconfig
 from slam_tpu import pipeline as jpipe
-from slam_tpu.config import (BundleConfig, FeatureConfig, KeyframeConfig,
-                             LoopConfig, RansacConfig, RuntimeConfig,
-                             SlamConfig)
-from slam_tpu.utils import metrics
+from slam_tpu.utils import metrics as jmetrics
 from slam_tpu.utils import synthetic as jsynth
-from slam_tpu_torch import pipeline
-from slam_tpu_torch.utils import synthetic
+from slam_tpu_torch import config, pipeline
+from slam_tpu_torch.config import (BundleConfig, FeatureConfig,
+                                   KeyframeConfig, LoopConfig, RansacConfig,
+                                   RuntimeConfig, SlamConfig)
+from slam_tpu_torch.utils import metrics, synthetic
 
 torch.set_num_threads(2)
 
@@ -42,6 +48,11 @@ CFG = SlamConfig(
 )
 
 
+def jax_config(cfg):
+    """The JAX package's SlamConfig equal to the port's ``cfg``."""
+    return jconfig.SlamConfig.from_json(cfg.to_json())
+
+
 @pytest.fixture(scope="module")
 def runs():
     scene = jsynth.make_scene(jax.random.PRNGKey(3), num_frames=80,
@@ -49,7 +60,7 @@ def runs():
                               hw=(160, 320))
     L, R = jsynth.render_sequence(scene)
     calib = np.asarray(scene.calib)
-    res_j = jpipe.run_pipeline(L, R, calib, CFG, verbose=False)
+    res_j = jpipe.run_pipeline(L, R, calib, jax_config(CFG), verbose=False)
     res_t = pipeline.run_pipeline(L, R, calib, CFG, verbose=False,
                                   device="cpu")
     return np.asarray(scene.T_w2c), res_j, res_t
@@ -184,8 +195,8 @@ def test_default_device_is_the_card(entry, monkeypatch):
 _NO_JAX_SCRIPT = """
 import sys
 import numpy as np
-from slam_tpu.config import BundleConfig, FeatureConfig, KeyframeConfig, \\
-    LoopConfig, RuntimeConfig, SlamConfig
+from slam_tpu_torch.config import BundleConfig, FeatureConfig, \\
+    KeyframeConfig, LoopConfig, RuntimeConfig, SlamConfig
 from slam_tpu_torch import pipeline
 from slam_tpu_torch.utils import synthetic
 
@@ -203,18 +214,93 @@ res = pipeline.run_pipeline(L, R, scene.calib, cfg, verbose=False,
 pipeline.evaluate(res, scene.T_w2c)
 assert np.isfinite(res.T_frontend).all()
 print(sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib")
-             or m.startswith(("slam_tpu.ops", "slam_tpu.pipeline"))))
+             if m.split(".")[0] in ("jax", "jaxlib", "slam_tpu")))
 """
 
 
 def test_port_never_imports_jax():
     """The port's whole slice, on a tiny scene, in a fresh interpreter:
-    afterwards no module of JAX (nor the JAX package's ops or pipeline,
-    which import it) is loaded."""
+    afterwards no module of JAX nor any module of the JAX package
+    (``slam_tpu`` or ``slam_tpu.*``) is loaded."""
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
     out = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=REPO,
                          env=env, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+FOREIGN = ("jax", "jaxlib", "slam_tpu")
+
+
+def foreign_imports(path: Path) -> list:
+    """Absolute imports of JAX or of the JAX package in one source file."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        found += [f"{path.name}:{node.lineno} {n}" for n in names
+                  if n.split(".")[0] in FOREIGN]
+    return found
+
+
+def test_port_sources_import_nothing_of_jax():
+    """No module of the port, and not chip_smoke.py, imports jax or any
+    module of the JAX package (``slam_tpu_torch`` is the port's own)."""
+    files = sorted((REPO / "slam_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 20
+    assert [f for p in files for f in foreign_imports(p)] == []
+
+
+def test_config_json_is_shared_with_jax(tmp_path):
+    """Both packages' default configs serialize to the same JSON, and a
+    non-default config saved by either loads in the other as equal."""
+    assert SlamConfig().to_json() == jconfig.SlamConfig().to_json()
+    assert [f.name for f in dataclasses.fields(SlamConfig)] == [
+        f.name for f in dataclasses.fields(jconfig.SlamConfig)]
+    CFG.save(tmp_path / "port.json")
+    back = jconfig.SlamConfig.load(tmp_path / "port.json")
+    assert back.to_json() == CFG.to_json()
+    assert back.bundle == jconfig.BundleConfig(**dataclasses.asdict(
+        CFG.bundle))
+    jcfg = jax_config(CFG)
+    jcfg.save(tmp_path / "jax.json")
+    assert config.SlamConfig.load(tmp_path / "jax.json") == CFG
+
+
+def test_metrics_equal_jax():
+    """The port's metrics functions return the JAX package's values on
+    seeded trajectories (the same numpy code)."""
+    rng = np.random.default_rng(7)
+    F = 120
+    T_gt = np.asarray(jsynth.loop_trajectory(F, radius=25.0), np.float64)
+    noise = np.eye(4) + np.pad(0.01 * rng.standard_normal((F, 3, 4)),
+                               ((0, 0), (0, 1), (0, 0)))
+    T_est = noise @ T_gt
+    for name in ("camera_centers", "abs_location_error",
+                 "rotation_error_deg", "dist_traveled"):
+        args = (T_est,) if name in ("camera_centers", "dist_traveled") \
+            else (T_est, T_gt)
+        np.testing.assert_array_equal(getattr(metrics, name)(*args),
+                                      getattr(jmetrics, name)(*args))
+    for align in (False, True):
+        assert metrics.ate_rmse(T_est, T_gt, align) == jmetrics.ate_rmse(
+            T_est, T_gt, align)
+    a, b = T_est[:, :3, 3], T_gt[:, :3, 3]
+    np.testing.assert_array_equal(metrics.rigid_align_points(a, b),
+                                  jmetrics.rigid_align_points(a, b))
+    lengths = (10, 40)
+    assert metrics.relative_subsequence_error(T_est, T_gt, lengths) == \
+        jmetrics.relative_subsequence_error(T_est, T_gt, lengths)
+    curves = metrics.relative_subsequence_curves(T_est, T_gt, lengths)
+    jcurves = jmetrics.relative_subsequence_curves(T_est, T_gt, lengths)
+    for L in lengths:
+        for k in ("x", "trans_m_per_m", "rot_deg_per_m"):
+            np.testing.assert_array_equal(curves[L][k], jcurves[L][k])
+    assert metrics.trajectory_summary(T_est, T_gt) == \
+        jmetrics.trajectory_summary(T_est, T_gt)
