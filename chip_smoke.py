@@ -34,7 +34,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      and the failed system's row is all NaN in both; median times of the
      kernel, the plain version (cholesky_ex + cholesky_solve, cuSOLVER)
      and torch.linalg.solve_ex at (64, 144, 144), the scene's batch and
-     (1, 12, 12);
+     (1, 12, 12), and the wrapper's host microseconds per call at
+     (1, 12, 12) (mean of 1000 calls, no synchronisation between);
   3. kernel B2 (mutual_nearest) against its plain version on the card at
      every call the main path makes: (32, 2048, 128) with the stereo and
      the temporal window of SlamConfig().matching, and loop verification's
@@ -136,6 +137,23 @@ def median_ms(fn, runs: int = TIMING_RUNS) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+HOST_CALLS = 1000
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Mean host microseconds of ``calls`` calls of fn() with no
+    synchronisation between them (after one warm-up): what a caller's
+    thread spends to enqueue the work."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def nbytes(*ts) -> int:
@@ -403,10 +421,12 @@ def spd_systems(gen, B, N, bad=()):
 
 
 def b6_bound(S, g):
-    """B6's bound: S and g in, x out; a Cholesky and two substitutions,
-    N^3 / 3 + 2 N^2 operations, per system."""
+    """B6's bound: S's lower triangle (all a Cholesky solve reads) and g
+    in, x out; a Cholesky and two substitutions, N^3 / 3 + 2 N^2
+    operations, per system."""
     B, N = g.shape
-    return bound(nbytes(S, g, g), B * (N ** 3 / 3 + 2 * N ** 2))
+    tri = B * N * (N + 1) // 2 * S.element_size()
+    return bound(tri + nbytes(g, g), B * (N ** 3 / 3 + 2 * N ** 2))
 
 
 def check_b6(ck, S, g, label: str, bad=None) -> float:
@@ -893,6 +913,10 @@ def main(argv=None) -> int:
             f"{t[0]:.4f} ms, plain (cholesky_ex + cholesky_solve) {t[1]:.4f} "
             f"ms, solve_ex {t[2]:.4f} ms, bound {t[3]:.5f} ms ({card})")
     b6_ms, b6_plain_ms, b6_lib_ms, _ = b6_at[tuple(S_64.shape)]
+    # the wrapper's host cost where the launch is all there is to it
+    wrapper_us = host_us(lambda: ck.cholesky_solve(S_12, g_12))
+    log(f"[B6] wrapper host time at {tuple(S_12.shape)}: {wrapper_us:.2f} us "
+        f"per call (mean of {HOST_CALLS} calls, no sync between) ({card})")
     bounds["cholesky_solve"] = b6_bound(S_64, g_64)
     del S_scene, S_64, S_bad
 

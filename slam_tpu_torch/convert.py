@@ -16,6 +16,7 @@ import torch
 
 from .models.bundle import BundleResult
 from .models.frontend import FrontendResult
+from .ops.cuda_kernels import resolve_device
 
 _FRONTEND_ARRAYS = ("xy", "valid", "links", "link_valid", "match_prev",
                     "match_dist", "inlier_prev", "T_rel", "T_w2c",
@@ -29,10 +30,12 @@ def _get(src, name):
     return src[name] if isinstance(src, dict) else getattr(src, name)
 
 
-def frontend_result(src, device="cpu") -> FrontendResult:
+def frontend_result(src, device="cuda") -> FrontendResult:
     """A port FrontendResult from the JAX package's frontend output; its
     descriptors (``desc``: a numpy array, or anything with ``numpy()``
-    such as the JAX DescriptorBank) become one float16 device tensor."""
+    such as the JAX DescriptorBank) become one float16 tensor on
+    ``device`` (the card unless the caller names the CPU)."""
+    device = resolve_device(device)
     desc = _get(src, "desc")
     desc = desc.numpy() if hasattr(desc, "numpy") else np.asarray(desc)
     arrays = {k: np.array(_get(src, k)) for k in _FRONTEND_ARRAYS}

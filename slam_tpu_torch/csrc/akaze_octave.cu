@@ -39,6 +39,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int TILE = 32;              // output tile side
@@ -159,20 +161,23 @@ extern "C" int slam_akaze_max_steps() {
 
 // Plain C entry point (loaded with ctypes). img (F, H, W) float32 and k
 // (F,) float32 in; L, resp, nms (F, H, W) float32 out; all contiguous on
-// the current device. 0 <= steps <= slam_akaze_max_steps(). Launches on
+// device `device`. 0 <= steps <= slam_akaze_max_steps(). Launches on
 // `stream` and returns the launch's cudaError_t (0 on success).
 extern "C" int slam_akaze_octave(const float* img, const float* k, float* L,
                                  float* resp, float* nms, int F, int H, int W,
                                  int steps, float tau, float sigma4,
-                                 void* stream) {
+                                 int device, void* stream) {
   if (F <= 0 || H <= 0 || W <= 0 || steps < 0 ||
       steps > slam_akaze_max_steps())
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(steps);
-  cudaError_t err = cudaFuncSetAttribute(
-      akaze_octave_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const slam::DeviceScope scope(device);
+  cudaError_t err = scope.error();
   if (err != cudaSuccess) return (int)err;
+  static slam::SmemOnce smem_once;  // to the most steps
+  err = smem_once(akaze_octave_kernel, device,
+                  smem_bytes(slam_akaze_max_steps()));
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = smem_bytes(steps);
   dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, F);
   akaze_octave_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
       img, k, L, resp, nms, H, W, steps, tau, sigma4);

@@ -39,6 +39,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int TILE = 32;             // output tile side
@@ -280,8 +282,10 @@ Taps make_taps(const float* taps_h, const float* taps_o) {
 template <bool HARRIS, bool ORIENT>
 int launch(const float* img, float* resp, float* nms, float* maps, int F,
            int H, int W, float k, const float* taps_h, const float* taps_o,
-           void* stream) {
+           int device, void* stream) {
   if (F <= 0 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  const slam::DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return (int)scope.error();
   dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, F);
   maps_kernel<HARRIS, ORIENT><<<grid, NT, 0, (cudaStream_t)stream>>>(
       img, resp, nms, maps, H, W, k, make_taps(taps_h, taps_o));
@@ -291,7 +295,7 @@ int launch(const float* img, float* resp, float* nms, float* maps, int F,
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Every tensor is float32,
-// contiguous, on the current device: img (F, H, W) in; resp, nms
+// contiguous, on device `device`: img (F, H, W) in; resp, nms
 // (F, H, W) and maps (F, 8, H, W) out. taps_h / taps_o: 5 host floats
 // each (the Gaussian taps of the structure tensor and of the orientation
 // blur). Each launches on `stream` and returns the launch's cudaError_t
@@ -301,23 +305,24 @@ int launch(const float* img, float* resp, float* nms, float* maps, int F,
 extern "C" int slam_detect_maps(const float* img, float* resp, float* nms,
                                 float* maps, int F, int H, int W, float k,
                                 const float* taps_h, const float* taps_o,
-                                void* stream) {
+                                int device, void* stream) {
   return launch<true, true>(img, resp, nms, maps, F, H, W, k, taps_h, taps_o,
-                            stream);
+                            device, stream);
 }
 
 // B4: the Harris phase (resp, nms).
 extern "C" int slam_harris_response(const float* img, float* resp, float* nms,
                                     int F, int H, int W, float k,
-                                    const float* taps_h, void* stream) {
+                                    const float* taps_h, int device,
+                                    void* stream) {
   return launch<true, false>(img, resp, nms, nullptr, F, H, W, k, taps_h,
-                             nullptr, stream);
+                             nullptr, device, stream);
 }
 
 // B3: the orientation phase (maps).
 extern "C" int slam_orientation_maps(const float* img, float* maps, int F,
                                      int H, int W, const float* taps_o,
-                                     void* stream) {
+                                     int device, void* stream) {
   return launch<false, true>(img, nullptr, nullptr, maps, F, H, W, 0.f,
-                             nullptr, taps_o, stream);
+                             nullptr, taps_o, device, stream);
 }

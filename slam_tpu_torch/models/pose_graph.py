@@ -17,6 +17,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..ops import cuda_kernels
 from ..ops import pose_graph as pg_ops
 
 SPARSE_NODE_THRESHOLD = 1024
@@ -42,7 +43,7 @@ class PoseGraph:
     sqrt_info: np.ndarray = field(
         default_factory=lambda: np.zeros((0, 6, 6), np.float32))
     is_loop: np.ndarray = field(default_factory=lambda: np.zeros(0, bool))
-    device: str = "cpu"
+    device: str = "cuda"
 
     @property
     def num_nodes(self) -> int:
@@ -53,8 +54,10 @@ class PoseGraph:
         return len(self.e_i)
 
     @staticmethod
-    def from_bundles(bundle_result, device="cpu") -> "PoseGraph":
-        """The odometry chain of a BundleResult."""
+    def from_bundles(bundle_result, device="cuda") -> "PoseGraph":
+        """The odometry chain of a BundleResult; its dense solves run on
+        ``device`` (the card unless the caller names the CPU)."""
+        device = cuda_kernels.resolve_device(device)
         B = bundle_result.rel_T.shape[0]
         return PoseGraph(
             nodes=bundle_result.T_w2c_keyframes.astype(np.float32).copy(),
@@ -97,7 +100,7 @@ class PoseGraph:
                 f"{self.num_nodes} keyframes > SPARSE_NODE_THRESHOLD="
                 f"{SPARSE_NODE_THRESHOLD}: the sparse selected-inverse pose "
                 f"graph (pg_sparse) is still to be ported (ROADMAP.md)")
-        dev = torch.device(self.device)
+        dev = cuda_kernels.resolve_device(self.device)
 
         def t(x, dtype=None):
             return torch.as_tensor(np.asarray(x), device=dev, dtype=dtype)
@@ -151,8 +154,9 @@ class PoseGraph:
             is_loop=self.is_loop)
 
     @staticmethod
-    def load(path: str | Path, device="cpu") -> "PoseGraph":
+    def load(path: str | Path, device="cuda") -> "PoseGraph":
         """Read a pose-graph npz written by either package."""
+        device = cuda_kernels.resolve_device(device)
         with np.load(str(path)) as z:
             return PoseGraph(nodes=z["nodes"],
                              keyframes=[int(k) for k in z["keyframes"]],

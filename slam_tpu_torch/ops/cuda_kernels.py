@@ -24,9 +24,10 @@ Each has a plain PyTorch version with the same signature (the wrapper's
 name + ``_plain``). A wrapper takes the plain version only for tensors on
 the CPU; for a CUDA tensor it launches its kernel or raises, on the
 current stream. The kernels are built with ``nvcc`` for sm_90a at first
-use, from the sources in ``csrc/``, into ``build/slam_tpu_torch/`` beside
-the package, and bound through ctypes (plain C entry points returning
-``cudaError_t``).
+use, from the sources in ``csrc/`` (one ``nvcc`` per source, all at once,
+then one link), into ``build/slam_tpu_torch/`` beside the package, and
+bound through ctypes (plain C entry points that take the tensors' device
+index and stream and return ``cudaError_t``).
 
 ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` calls of the plain
 versions, so a run can show which path it took.
@@ -50,9 +51,10 @@ _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(_PKG / "csrc" / n for n in (
     "detect_maps.cu", "mutual_nearest.cu", "akaze_octave.cu",
     "cholesky_solve.cu"))
+HEADERS = (_PKG / "csrc" / "launch.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "slam_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNELS = ("detect_maps", "mutual_nearest", "orientation_maps",
            "harris_response", "akaze_octave", "cholesky_solve")
@@ -60,6 +62,7 @@ LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 _lib = None
 build_log = ""
+cholesky_max_n = 0  # B6's largest N, read from the library when it loads
 
 
 def reset_counters() -> None:
@@ -91,48 +94,70 @@ def _find_nvcc() -> str:
                        " the CUDA kernels cannot be built")
 
 
+def _run_all(cmds) -> str:
+    """Run the commands at once; their output, in order. Raises if one
+    failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
+    log = "".join(logs)
+    for proc in procs:
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    return log
+
+
 def build() -> ctypes.CDLL:
     """Compile (once per source content) and load the kernel library."""
-    global _lib, build_log
+    global _lib, build_log, cholesky_max_n
     if _lib is not None:
         return _lib
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     out = BUILD_DIR / f"libslam_kernels_{h.hexdigest()[:16]}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-        os.replace(tmp, out)
+        nvcc, tag = _find_nvcc(), f"{out.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+        tmp = out.with_name(f"{tag}.tmp.so")
+        try:
+            build_log = _run_all(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                for src, o in zip(SOURCES, objs))
+            build_log += _run_all([[nvcc, "-shared", "-o", str(tmp),
+                                    *(str(o) for o in objs)]])
+            os.replace(tmp, out)
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
     lib = ctypes.CDLL(str(out))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.slam_detect_maps.argtypes = [p, p, p, p, i, i, i, f, p, p, p]
-    lib.slam_harris_response.argtypes = [p, p, p, i, i, i, f, p, p]
-    lib.slam_orientation_maps.argtypes = [p, p, i, i, i, p, p]
-    lib.slam_akaze_octave.argtypes = [p, p, p, p, p, i, i, i, i, f, f, p]
+    # every launch entry point ends with (device index, stream)
+    lib.slam_detect_maps.argtypes = [p, p, p, p, i, i, i, f, p, p, i, p]
+    lib.slam_harris_response.argtypes = [p, p, p, i, i, i, f, p, i, p]
+    lib.slam_orientation_maps.argtypes = [p, p, i, i, i, p, i, p]
+    lib.slam_akaze_octave.argtypes = [p, p, p, p, p, i, i, i, i, f, f, i, p]
     lib.slam_akaze_max_steps.argtypes = []
-    lib.slam_cholesky_solve.argtypes = [p, p, p, i, i, p]
+    lib.slam_cholesky_solve.argtypes = [p, p, p, i, i, i, p]
     lib.slam_cholesky_max_n.argtypes = []
+    lib.slam_mutual_nearest.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, f,
+                                        f, p, p, p, p, p, i, p]
     for fn in (lib.slam_detect_maps, lib.slam_harris_response,
                lib.slam_orientation_maps, lib.slam_akaze_octave,
                lib.slam_akaze_max_steps, lib.slam_cholesky_solve,
-               lib.slam_cholesky_max_n):
+               lib.slam_cholesky_max_n, lib.slam_mutual_nearest):
         fn.restype = i
-    lib.slam_mutual_nearest.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, f,
-                                        f, p, p, p, p, p, p]
-    lib.slam_mutual_nearest.restype = i
+    cholesky_max_n = lib.slam_cholesky_max_n()
     _lib = lib
     return lib
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of t's device, as the raw handle the kernels
+    take (without building a torch.cuda.Stream object on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _check(err: int, name: str) -> None:
@@ -140,9 +165,11 @@ def _check(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
 
 
-def _require(cond: bool, msg: str) -> None:
+def _require(cond: bool, msg: str, *args) -> None:
+    """Raise ValueError(msg.format(*args)) unless cond: the message is
+    built only on failure, as the wrappers run once per launch."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg.format(*args))
 
 
 # ---------------------------------------------------------------------------
@@ -152,16 +179,16 @@ def _require(cond: bool, msg: str) -> None:
 def _check_images(imgs: torch.Tensor, name: str) -> bool:
     """Validate (F, H, W) float32 images; True when they lie on the card
     (launch the kernel), False on the CPU (run the plain version)."""
-    _require(imgs.dim() == 3, f"{name}: expected (F, H, W), got "
-             f"{tuple(imgs.shape)}")
-    _require(imgs.dtype == torch.float32,
-             f"{name}: expected float32, got {imgs.dtype}")
+    _require(imgs.dim() == 3, "{}: expected (F, H, W), got {}", name,
+             imgs.shape)
+    _require(imgs.dtype == torch.float32, "{}: expected float32, got {}",
+             name, imgs.dtype)
     if imgs.device.type == "cpu":
         return False
-    _require(imgs.device.type == "cuda",
-             f"{name}: unsupported device {imgs.device}")
-    _require(imgs.is_contiguous(), f"{name}: input must be contiguous")
-    _require(min(imgs.shape) > 0, f"{name}: empty input")
+    _require(imgs.device.type == "cuda", "{}: unsupported device {}", name,
+             imgs.device)
+    _require(imgs.is_contiguous(), "{}: input must be contiguous", name)
+    _require(min(imgs.shape) > 0, "{}: empty input", name)
     return True
 
 
@@ -192,10 +219,9 @@ def detect_maps(imgs: torch.Tensor, k: float = 0.05):
     nms = torch.empty_like(imgs)
     maps = torch.empty((F, 8, H, W), dtype=imgs.dtype, device=imgs.device)
     th, to = _taps(1.5), _taps(1.0)
-    with torch.cuda.device(imgs.device):
-        err = lib.slam_detect_maps(
-            imgs.data_ptr(), resp.data_ptr(), nms.data_ptr(), maps.data_ptr(),
-            F, H, W, float(k), th, to, _stream(imgs))
+    err = lib.slam_detect_maps(
+        imgs.data_ptr(), resp.data_ptr(), nms.data_ptr(), maps.data_ptr(),
+        F, H, W, float(k), th, to, imgs.device.index, _stream(imgs))
     _check(err, "detect_maps")
     LAUNCHES["detect_maps"] += 1
     return resp, nms, maps
@@ -219,10 +245,9 @@ def harris_response(imgs: torch.Tensor, k: float = 0.05):
     resp = torch.empty_like(imgs)
     nms = torch.empty_like(imgs)
     th = _taps(1.5)
-    with torch.cuda.device(imgs.device):
-        err = lib.slam_harris_response(
-            imgs.data_ptr(), resp.data_ptr(), nms.data_ptr(), F, H, W,
-            float(k), th, _stream(imgs))
+    err = lib.slam_harris_response(
+        imgs.data_ptr(), resp.data_ptr(), nms.data_ptr(), F, H, W, float(k),
+        th, imgs.device.index, _stream(imgs))
     _check(err, "harris_response")
     LAUNCHES["harris_response"] += 1
     return resp, nms
@@ -243,9 +268,8 @@ def orientation_maps(imgs: torch.Tensor):
     lib = build()
     maps = torch.empty((F, 8, H, W), dtype=imgs.dtype, device=imgs.device)
     to = _taps(1.0)
-    with torch.cuda.device(imgs.device):
-        err = lib.slam_orientation_maps(imgs.data_ptr(), maps.data_ptr(), F,
-                                        H, W, to, _stream(imgs))
+    err = lib.slam_orientation_maps(imgs.data_ptr(), maps.data_ptr(), F, H,
+                                    W, to, imgs.device.index, _stream(imgs))
     _check(err, "orientation_maps")
     LAUNCHES["orientation_maps"] += 1
     return maps
@@ -276,25 +300,24 @@ def akaze_octave(imgs: torch.Tensor, k: torch.Tensor, steps: int = 6,
     on_card = _check_images(imgs, "akaze_octave")
     _require(k.shape == imgs.shape[:1] and k.dtype == torch.float32
              and k.device == imgs.device,
-             f"akaze_octave: k must be float32 ({imgs.shape[0]},) on "
-             f"{imgs.device}")
-    _require(steps >= 0, f"akaze_octave: steps={steps} < 0")
+             "akaze_octave: k must be float32 ({},) on {}", imgs.shape[0],
+             imgs.device)
+    _require(steps >= 0, "akaze_octave: steps={} < 0", steps)
     if not on_card:
         return akaze_octave_plain(imgs, k, steps, tau, sigma)
     F, H, W = imgs.shape
     lib = build()
     max_steps = lib.slam_akaze_max_steps()
-    _require(steps <= max_steps, f"akaze_octave: steps={steps} above the "
-             f"{max_steps} one block's shared memory holds")
+    _require(steps <= max_steps, "akaze_octave: steps={} above the {} one "
+             "block's shared memory holds", steps, max_steps)
     k = k.contiguous()
     L = torch.empty_like(imgs)
     resp = torch.empty_like(imgs)
     nms = torch.empty_like(imgs)
-    with torch.cuda.device(imgs.device):
-        err = lib.slam_akaze_octave(
-            imgs.data_ptr(), k.data_ptr(), L.data_ptr(), resp.data_ptr(),
-            nms.data_ptr(), F, H, W, int(steps), float(tau),
-            float(sigma) ** 4, _stream(imgs))
+    err = lib.slam_akaze_octave(
+        imgs.data_ptr(), k.data_ptr(), L.data_ptr(), resp.data_ptr(),
+        nms.data_ptr(), F, H, W, int(steps), float(tau), float(sigma) ** 4,
+        imgs.device.index, _stream(imgs))
     _check(err, "akaze_octave")
     LAUNCHES["akaze_octave"] += 1
     return L, resp, nms
@@ -310,8 +333,7 @@ def _check_match_inputs(desc_a, desc_b, valid_a, valid_b, xy_a, xy_b,
              "mutual_nearest: descriptors must be (B, K, D)")
     B, Ka, D = desc_a.shape
     _require(desc_b.shape[0] == B and desc_b.shape[2] == D,
-             f"mutual_nearest: shapes {tuple(desc_a.shape)} vs "
-             f"{tuple(desc_b.shape)}")
+             "mutual_nearest: shapes {} vs {}", desc_a.shape, desc_b.shape)
     Kb = desc_b.shape[1]
     _require(desc_a.is_floating_point() and desc_b.is_floating_point(),
              "mutual_nearest: descriptors must be floating point")
@@ -325,11 +347,12 @@ def _check_match_inputs(desc_a, desc_b, valid_a, valid_b, xy_a, xy_b,
                  and xy_a.dtype == torch.float32
                  and xy_b.dtype == torch.float32,
                  "mutual_nearest: xy must be float32 (B, K, 2)")
-    devs = {t.device for t in (desc_a, desc_b, valid_a, valid_b)}
-    if window is not None:
-        devs |= {xy_a.device, xy_b.device}
-    _require(len(devs) == 1, f"mutual_nearest: tensors on several devices "
-             f"{devs}")
+    dev = desc_a.device
+    ins = (desc_b, valid_a, valid_b) + ((xy_a, xy_b) if window is not None
+                                        else ())
+    _require(all(t.device == dev for t in ins),
+             "mutual_nearest: tensors on several devices {}",
+             [str(t.device) for t in (desc_a,) + ins])
     return B, Ka, Kb, D
 
 
@@ -379,9 +402,9 @@ def mutual_nearest(desc_a, desc_b, valid_a, valid_b, xy_a=None, xy_b=None,
     if dev.type == "cpu":
         return mutual_nearest_plain(desc_a, desc_b, valid_a, valid_b, xy_a,
                                     xy_b, window)
-    _require(dev.type == "cuda", f"mutual_nearest: unsupported device {dev}")
+    _require(dev.type == "cuda", "mutual_nearest: unsupported device {}", dev)
     _require(D % 16 == 0 and 0 < D <= 256,
-             f"mutual_nearest: D={D} must be a multiple of 16 up to 256")
+             "mutual_nearest: D={} must be a multiple of 16 up to 256", D)
     _require(Ka > 0 and Kb > 0, "mutual_nearest: empty descriptor set")
     ins = (desc_a, desc_b, valid_a, valid_b) + (
         (xy_a, xy_b) if window is not None else ())
@@ -390,22 +413,19 @@ def mutual_nearest(desc_a, desc_b, valid_a, valid_b, xy_a=None, xy_b=None,
     lib = build()
     a = desc_a.to(torch.bfloat16)
     b = desc_b.to(torch.bfloat16)
-    pen_a = torch.where(valid_a, 0.0, BIG)
-    pen_b = torch.where(valid_b, 0.0, BIG)
     win = (0.0, 0.0, 0.0) if window is None else tuple(float(v) for v in window)
     xa = xy_a.data_ptr() if window is not None else None
     xb = xy_b.data_ptr() if window is not None else None
-    colbest = torch.full((B, Kb), -1, dtype=torch.int64, device=dev)
+    colbest = torch.empty((B, Kb), dtype=torch.int64, device=dev)
     rdist = torch.empty((B, Ka), dtype=torch.float32, device=dev)
     ridx = torch.empty((B, Ka), dtype=torch.int64, device=dev)
     cdist = torch.empty((B, Kb), dtype=torch.float32, device=dev)
     cidx = torch.empty((B, Kb), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.slam_mutual_nearest(
-            a.data_ptr(), b.data_ptr(), pen_a.data_ptr(), pen_b.data_ptr(),
-            xa, xb, B, Ka, Kb, D, int(window is not None), *win,
-            colbest.data_ptr(), rdist.data_ptr(), ridx.data_ptr(),
-            cdist.data_ptr(), cidx.data_ptr(), _stream(a))
+    err = lib.slam_mutual_nearest(
+        a.data_ptr(), b.data_ptr(), valid_a.data_ptr(), valid_b.data_ptr(), xa,
+        xb, B, Ka, Kb, D, int(window is not None), *win, colbest.data_ptr(),
+        rdist.data_ptr(), ridx.data_ptr(), cdist.data_ptr(), cidx.data_ptr(),
+        dev.index, _stream(a))
     _check(err, "mutual_nearest")
     LAUNCHES["mutual_nearest"] += 1
     return rdist, ridx, cdist, cidx
@@ -430,31 +450,30 @@ def cholesky_solve(S: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     factorization meets a pivot that is not positive or not finite gets
     an all-NaN row (pallas_kernels.cholesky_solve_lanes, which clamps such
     a pivot instead). Raises ValueError for N above what one block's
-    shared memory holds (``slam_cholesky_max_n``, 238 on an H100)."""
+    shared memory holds (``cholesky_max_n``, 221 on an H100). Besides
+    the launch it makes no ctypes call."""
     _require(S.dim() == 3 and S.shape[1] == S.shape[2],
-             f"cholesky_solve: S must be (B, N, N), got {tuple(S.shape)}")
-    B, N = S.shape[:2]
-    _require(tuple(g.shape) == (B, N), f"cholesky_solve: g must be "
-             f"({B}, {N}), got {tuple(g.shape)}")
+             "cholesky_solve: S must be (B, N, N), got {}", S.shape)
+    B, N = S.shape[0], S.shape[1]
+    _require(g.shape == (B, N), "cholesky_solve: g must be ({}, {}), got {}",
+             B, N, g.shape)
     _require(S.dtype == torch.float32 and g.dtype == torch.float32,
-             f"cholesky_solve: expected float32, got {S.dtype}, {g.dtype}")
-    _require(S.device == g.device, f"cholesky_solve: S on {S.device}, g on "
-             f"{g.device}")
-    if S.device.type == "cpu":
+             "cholesky_solve: expected float32, got {}, {}", S.dtype, g.dtype)
+    dev = S.device
+    _require(g.device == dev, "cholesky_solve: S on {}, g on {}", dev,
+             g.device)
+    if dev.type == "cpu":
         return cholesky_solve_plain(S, g)
-    _require(S.device.type == "cuda",
-             f"cholesky_solve: unsupported device {S.device}")
+    _require(dev.type == "cuda", "cholesky_solve: unsupported device {}", dev)
     _require(S.is_contiguous() and g.is_contiguous(),
              "cholesky_solve: inputs must be contiguous")
     _require(B > 0 and N > 0, "cholesky_solve: empty input")
     lib = build()
-    max_n = lib.slam_cholesky_max_n()
-    _require(N <= max_n, f"cholesky_solve: N={N} above the {max_n} one "
-             f"block's shared memory holds")
+    _require(N <= cholesky_max_n, "cholesky_solve: N={} above the {} one "
+             "block's shared memory holds", N, cholesky_max_n)
     x = torch.empty_like(g)
-    with torch.cuda.device(S.device):
-        err = lib.slam_cholesky_solve(S.data_ptr(), g.data_ptr(),
-                                      x.data_ptr(), B, N, _stream(S))
+    err = lib.slam_cholesky_solve(S.data_ptr(), g.data_ptr(), x.data_ptr(),
+                                  B, N, dev.index, _stream(S))
     _check(err, "cholesky_solve")
     LAUNCHES["cholesky_solve"] += 1
     return x

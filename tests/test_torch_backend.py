@@ -8,6 +8,7 @@ order in torch, and loop-closure RANSAC draws other hypotheses.
 """
 
 import dataclasses
+import types
 
 import jax
 import numpy as np
@@ -144,12 +145,13 @@ def test_pose_graph_chain_and_npz_format(jax_run, tmp_path):
     """The odometry chain equals the JAX package's (host float64), and
     the port reads the JAX package's pose-graph and bundles npz files."""
     _, res = jax_run
-    pg = PoseGraph.from_bundles(convert.bundle_result(res.bundles))
+    pg = PoseGraph.from_bundles(convert.bundle_result(res.bundles),
+                                device="cpu")
     pg.optimize()
     np.testing.assert_allclose(pg.nodes, res.pose_graph_pre_lc.nodes,
                                atol=1e-6)
     res.pose_graph.save(tmp_path / "pg.npz")
-    loaded = PoseGraph.load(tmp_path / "pg.npz")
+    loaded = PoseGraph.load(tmp_path / "pg.npz", device="cpu")
     for k in ("nodes", "e_i", "e_j", "Z", "sqrt_info", "is_loop"):
         np.testing.assert_array_equal(getattr(loaded, k),
                                       getattr(res.pose_graph, k))
@@ -158,6 +160,33 @@ def test_pose_graph_chain_and_npz_format(jax_run, tmp_path):
     for k in ("poses", "rel_T", "rel_cov", "T_w2c_keyframes", "meas"):
         np.testing.assert_array_equal(getattr(b, k), getattr(res.bundles, k))
     assert b.keyframes == res.bundles.keyframes
+
+
+def test_graph_and_frontend_default_to_the_card(monkeypatch, tmp_path):
+    """Without a card, PoseGraph.from_bundles, PoseGraph.load and
+    convert.frontend_result raise unless the caller names the CPU, as
+    run_pipeline does: their default device is the card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    b = types.SimpleNamespace(
+        rel_T=np.eye(4, dtype=np.float32)[None],
+        rel_cov=1e-4 * np.eye(6)[None],
+        T_w2c_keyframes=np.eye(4, dtype=np.float32)[None].repeat(2, 0),
+        keyframes=[0, 3])
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        PoseGraph.from_bundles(b)
+    pg = PoseGraph.from_bundles(b, device="cpu")
+    assert pg.device == "cpu" and pg.num_edges == 1
+    pg.save(tmp_path / "pg.npz")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        PoseGraph.load(tmp_path / "pg.npz")
+    assert PoseGraph.load(tmp_path / "pg.npz", device="cpu").num_nodes == 2
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        PoseGraph(device="cuda").covariance_full()
+    fe = {k: np.zeros(1) for k in convert._FRONTEND_ARRAYS}
+    fe["desc"] = np.zeros((1, 4, 16), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        convert.frontend_result(fe)
+    assert convert.frontend_result(fe, device="cpu").desc.device.type == "cpu"
 
 
 def _graph_pair(res):
@@ -171,7 +200,8 @@ def _graph_pair(res):
                     is_loop=pre.is_loop.copy())
     gt = PoseGraph(nodes=pre.nodes.copy(), keyframes=list(pre.keyframes),
                    e_i=pre.e_i.copy(), e_j=pre.e_j.copy(), Z=pre.Z.copy(),
-                   sqrt_info=pre.sqrt_info.copy(), is_loop=pre.is_loop.copy())
+                   sqrt_info=pre.sqrt_info.copy(), is_loop=pre.is_loop.copy(),
+                   device="cpu")
     for g in (gj, gt):
         g.add_edge(c.kf_i, c.kf_j, c.rel_T, c.rel_cov, loop=True)
     return gj, gt
@@ -218,8 +248,8 @@ def test_find_loops_matches_jax(jax_run, tmp_path):
     2 cm / 0.1 deg."""
     calib, res = jax_run
     res.pose_graph_pre_lc.save(tmp_path / "pre.npz")
-    pg = PoseGraph.load(tmp_path / "pre.npz")
-    fe = convert.frontend_result(res.frontend)
+    pg = PoseGraph.load(tmp_path / "pre.npz", device="cpu")
+    fe = convert.frontend_result(res.frontend, device="cpu")
     closures = loop_closure.find_loops(pg, res.db, fe.desc, fe.valid, calib,
                                        CFG)
     assert [(c.frame_i, c.frame_j) for c in closures] == [
@@ -239,7 +269,7 @@ def test_find_loops_matches_jax(jax_run, tmp_path):
 
 def test_converted_frontend_builds_the_same_track_store(jax_run):
     _, res = jax_run
-    fe = convert.frontend_result(res.frontend)
+    fe = convert.frontend_result(res.frontend, device="cpu")
     assert fe.desc.dtype == torch.float16
     assert tuple(fe.desc.shape) == res.frontend.desc.shape
     db = TrackStore.from_frontend(fe)

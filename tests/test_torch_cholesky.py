@@ -147,3 +147,99 @@ def test_switch_routes_optimize_bundle_through_b6(windows, monkeypatch):
             assert torch.equal(a, b)
     assert float(outs[0][2].sum()) < float(ba._cost(
         poses, points, cam, lm, meas, w, calib).sum())
+
+
+# ---------------------------------------------------------------------------
+# B6's blocked schedule (csrc/cholesky_solve.cu), written out in torch
+# ---------------------------------------------------------------------------
+
+def blocked_cholesky_solve(S, g, nb):
+    """S x = g by the CUDA kernel's schedule, in float32 torch, batched:
+    per block of nb columns, the diagonal block factored column by column,
+    right-looking (one warp in the kernel), every pivot checked; the panel
+    below it
+    solved against the block row by row, 1 / L_jj first; the trailing
+    lower triangle updated by one nb-long sum of products per entry. Then
+    both substitutions block by block: the diagonal triangle step by step,
+    the rest of the right-hand side by one nb-long sum per row. A system
+    with a pivot that is not positive or not finite gets an all-NaN row."""
+    y = g.clone()
+    B, N = g.shape
+    A = torch.tril(S)
+    dinv = torch.zeros((B, N))
+    failed = torch.zeros(B, dtype=torch.bool)
+    blocks = [(kb, min(kb + nb, N)) for kb in range(0, N, nb)]
+    for kb, e in blocks:
+        for k in range(kb, e):
+            d = A[:, k, k]
+            failed |= ~((d > 0) & (d < float("inf")))
+            dinv[:, k] = torch.rsqrt(d)
+            A[:, k + 1:e, k] *= dinv[:, k, None]
+            lk = A[:, k + 1:e, k]
+            A[:, k + 1:e, k + 1:e] -= torch.tril(lk[:, :, None] * lk[:, None])
+        if e == N:
+            continue
+        for j in range(kb, e):
+            A[:, e:, j] *= dinv[:, j, None]
+            A[:, e:, j + 1:e] -= A[:, e:, j, None] * A[:, None, j + 1:e, j]
+        L21 = A[:, e:, kb:e]
+        A[:, e:, e:] -= torch.tril(L21 @ L21.transpose(1, 2))
+    for kb, e in blocks:
+        for k in range(kb, e):
+            y[:, k] *= dinv[:, k]
+            y[:, k + 1:e] -= A[:, k + 1:e, k] * y[:, k, None]
+        y[:, e:] -= (A[:, e:, kb:e] @ y[:, kb:e, None])[..., 0]
+    for kb, e in reversed(blocks):
+        for k in reversed(range(kb, e)):
+            y[:, k] *= dinv[:, k]
+            y[:, kb:k] -= A[:, k, kb:k] * y[:, k, None]
+        y[:, :kb] -= (A[:, kb:e, :kb].transpose(1, 2)
+                      @ y[:, kb:e, None])[..., 0]
+    return torch.where(failed[:, None], float("nan"), y)
+
+
+_PALLAS = {}
+
+
+def pallas_solve(S, g):
+    key = (S.shape, S.tobytes(), g.tobytes())
+    if key not in _PALLAS:
+        _PALLAS[key] = np.asarray(pk.cholesky_solve_lanes(
+            jnp.asarray(S), jnp.asarray(g), interpret=True))
+    return _PALLAS[key]
+
+
+@pytest.mark.parametrize("nb", [16, 32])
+@pytest.mark.parametrize("N", [12, 16, 17, 33, 144])
+def test_blocked_schedule_matches_pallas_and_float64(N, nb):
+    """The blocked schedule, with N a multiple of nb or not, against the
+    float64 solve: its error relative to max |x| at most 4x the plain
+    version's + 1e-6 (chip_smoke.py phase 2d's rule), and the same
+    against the Pallas kernel's error."""
+    S, g = spd_systems(11, 4, N)
+    ref = np.linalg.solve(S.astype(np.float64),
+                          g.astype(np.float64)[..., None])[..., 0]
+    x = blocked_cholesky_solve(torch.as_tensor(S), torch.as_tensor(g), nb)
+    x_plain = ck.cholesky_solve(torch.as_tensor(S), torch.as_tensor(g))
+    e = rel_err(x.numpy(), ref)
+    assert np.isfinite(x.numpy()).all()
+    assert e <= 4.0 * rel_err(x_plain.numpy(), ref) + 1e-6
+    assert e <= 4.0 * rel_err(pallas_solve(S, g), ref) + 1e-6
+
+
+@pytest.mark.parametrize("nb", [16, 32])
+@pytest.mark.parametrize("pivot", [10, 70, 140])
+def test_blocked_schedule_fails_in_any_block(pivot, nb):
+    """A decoupled pivot of -1 in the first, a middle or the last block
+    of N = 144: that system's row is all NaN in the schedule and NaN in
+    the plain version, and the other systems solve as they do alone."""
+    S, g = spd_systems(12, 3, 144)
+    S[1, pivot, :] = 0.0
+    S[1, :, pivot] = 0.0
+    S[1, pivot, pivot] = -1.0
+    St, gt = torch.as_tensor(S), torch.as_tensor(g)
+    x = blocked_cholesky_solve(St, gt, nb)
+    assert torch.isnan(x).all(-1).tolist() == [False, True, False]
+    assert torch.isnan(ck.cholesky_solve(St, gt)[1]).all()
+    keep = [0, 2]
+    assert torch.equal(x[keep], blocked_cholesky_solve(St[keep], gt[keep], nb))

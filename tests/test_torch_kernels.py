@@ -154,24 +154,195 @@ def test_mutual_match_matches_pallas_wrapper():
 
 
 # ---------------------------------------------------------------------------
+# B2's reduction schedule (csrc/mutual_nearest.cu), written out in torch
+# ---------------------------------------------------------------------------
+
+def f2key(d):
+    """The kernel's order-preserving float -> uint32 key (-0 folded to
+    +0), as int64."""
+    d = torch.where(d == 0, 0.0, d).float()
+    u = d.view(torch.int32).long() & 0xFFFFFFFF
+    return torch.where(u >= 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+
+
+def key2f(k):
+    u = torch.where(k >= 0x80000000, k & 0x7FFFFFFF, ~k & 0xFFFFFFFF)
+    return u.int().view(torch.float32)
+
+
+def pack(d, idx):
+    """The kernel's 64-bit (key << 32 | index), shifted by -2^63 so that
+    int64 order is its unsigned order."""
+    return (f2key(d) - 2 ** 31) * 2 ** 32 + idx
+
+
+def unpack(k):
+    return key2f(k // 2 ** 32 + 2 ** 31), k % 2 ** 32
+
+
+def strict_less_scan(d, idx):
+    """Minimum over the last axis visited in order with strict-less
+    updates (a thread's running minimum), and the index it keeps."""
+    best = torch.full(d.shape[:-1], float("inf"))
+    arg = torch.zeros(d.shape[:-1], dtype=torch.int64)
+    for i in range(d.shape[-1]):
+        upd = d[..., i] < best
+        best = torch.where(upd, d[..., i], best)
+        arg = torch.where(upd, idx[..., i], arg)
+    return best, arg
+
+
+def b2_schedule(base, valid_a, valid_b, BM=128, BN=64):
+    """Both reductions of B2 over the (B, Ka, Kb) window distances, in the
+    kernel's order: CTAs of BM rows, column tiles of BN, 32 x 32 warp
+    tiles, each thread holding rows 8q + g (q < 4) and columns 8 ni + 2t
+    + e (ni < 4, e < 2) of its warp tile (g = lane / 4, t = lane % 4).
+    Rows and columns past Ka, Kb get an infinite penalty.
+      rows: each thread's strict-less minimum over its columns in every
+        tile, in order; then packed (key, column) minima over the quad
+        (xor 1, 2) and over the column warps;
+      columns, per tile: each thread's strict-less minimum over its 4
+        rows; the 8 lanes of equal t reduce-scatter packed (key, row)
+        keys (xor 16, 8, 4: lane g keeps slot g); the row warps' minimum;
+        then the minimum over the CTAs (the kernel's atomicMin).
+    Returns (rdist, ridx, cdist, cidx) as the kernel does."""
+    B, Ka, Kb = base.shape
+    nc, nt = -(-Ka // BM), -(-Kb // BN)
+    wm_n, wn_n = BM // 32, BN // 32
+    inf = float("inf")
+    pa = torch.nn.functional.pad(torch.where(valid_a, 0.0, ck.BIG),
+                                 (0, nc * BM - Ka), value=inf)
+    pb = torch.nn.functional.pad(torch.where(valid_b, 0.0, ck.BIG),
+                                 (0, nt * BN - Kb), value=inf)
+    base = torch.nn.functional.pad(base, (0, nt * BN - Kb, 0, nc * BM - Ka),
+                                   value=2.0)
+    # axes: b, cta, wm, q, g | tile, wn, ni, t, e
+    shape = (B, nc, wm_n, 4, 8, nt, wn_n, 4, 4, 2)
+    rows = torch.arange(nc * BM)[:, None].expand(-1, nt * BN).reshape(
+        shape[1:])
+    cols = torch.arange(nt * BN)[None, :].expand(nc * BM, -1).reshape(
+        shape[1:])
+    d_row = (base + pb[:, None, :]).reshape(shape)
+    d_col = (base + pa[:, :, None]).reshape(shape)
+
+    # rows: thread (b, cta, wm, q, g, wn, t) over (tile, ni, e)
+    perm = (0, 1, 2, 3, 4, 6, 8, 5, 7, 9)
+    d = d_row.permute(perm).flatten(-3)
+    best, arg = strict_less_scan(d, cols[None].permute(perm).flatten(-3)
+                                 .expand_as(d))
+    k = pack(best, arg)                       # (..., wn, t)
+    for m in (1, 2):
+        k = torch.minimum(k, k[..., torch.arange(4) ^ m])
+    k = k[..., 0].min(dim=-1).values          # the two column warps
+    rdist, ridx = unpack(k.reshape(B, nc * BM)[:, :Ka])
+
+    # columns: thread (b, cta, wm, g, tile, wn, ni, t, e) over q
+    perm = (0, 1, 2, 4, 5, 6, 7, 8, 9, 3)
+    d = d_col.permute(perm)
+    best, arg = strict_less_scan(d, rows[None].permute(perm).expand_as(d))
+    # slots s = 2 ni + e: axes b, cta, wm, tile, wn, t, g, s
+    k = pack(best, arg).permute(0, 1, 2, 4, 5, 7, 3, 6, 8).flatten(-2)
+    g = torch.arange(8)
+    for half, m in ((4, 4), (2, 2), (1, 1)):
+        hi = (g // m) % 2                      # lane bit: xor 16, 8, 4
+        s = torch.arange(half)[None, :] + half * hi[:, None]   # (g, half)
+        keep = torch.gather(k, -1, s.expand(k.shape[:-2] + s.shape))
+        recv = torch.gather(k[..., g ^ m, :], -1,
+                            s.expand(k.shape[:-2] + s.shape))
+        k = torch.minimum(keep, recv)
+    k = k[..., 0]                              # lane g: slot g
+    # slot g of lane (g, t) is warp column 8 (g // 2) + 2 t + g % 2
+    col = (8 * (g // 2)[None, :] + 2 * torch.arange(4)[:, None]
+           + (g % 2)[None, :])                 # (t, g)
+    out = torch.empty(k.shape[:-2] + (32,), dtype=torch.int64)
+    out[..., col.flatten()] = k.flatten(-2)
+    out = out.min(dim=2).values                # the row warps
+    out = out.flatten(-3)                      # (b, cta, tile * wn * 32)
+    out = out.min(dim=1).values                # over CTAs: atomicMin
+    cdist, cidx = unpack(out[:, :Kb])
+    return rdist, ridx, cdist, cidx
+
+
+def lowest_argmin(d, dim):
+    m = d.min(dim=dim, keepdim=True).values
+    idx = torch.arange(d.shape[dim]).view([-1 if i == dim % d.dim() else 1
+                                           for i in range(d.dim())])
+    return torch.where(d == m, idx, d.shape[dim]).min(dim=dim).values
+
+
+@pytest.mark.parametrize("window", [None, WINDOW])
+def test_b2_schedule_on_hamming_ties_matches_pallas(window):
+    """On +-1 signs (integer distances, many ties) the schedule's
+    distances equal the Pallas kernel's (interpret mode) exactly, and
+    every row and column index equals the lowest-index argmin, as the
+    Pallas kernel's do."""
+    import jax.numpy as jnp
+    from slam_tpu.ops import pallas_kernels as pk
+
+    a, b, va, vb, xa, xb = desc_sets(13, 1, 1024, 1024)
+    a = np.where(a > a.mean(-1, keepdims=True), 1.0, -1.0).astype(np.float32)
+    b = np.where(b > b.mean(-1, keepdims=True), 1.0, -1.0).astype(np.float32)
+    out_j = [np.asarray(x) for x in pk.mutual_nearest(
+        jnp.asarray(a[0]), jnp.asarray(b[0]), jnp.asarray(va[0]),
+        jnp.asarray(vb[0]), interpret=True, xy_a=jnp.asarray(xa[0]),
+        xy_b=jnp.asarray(xb[0]), window=window)]
+    base = ck.window_distances(t(a), t(b), t(xa), t(xb), window)
+    rd, ri, cd, ci = b2_schedule(base, t(va), t(vb))
+    d_row = base + torch.where(t(vb), 0.0, ck.BIG)[:, None, :]
+    d_col = base + torch.where(t(va), 0.0, ck.BIG)[:, :, None]
+    tied = sum(int(((d == d.min(dim, keepdim=True).values).sum(dim) > 1)
+                   .sum()) for d, dim in ((d_row, 2), (d_col, 1)))
+    assert tied > 50
+    assert torch.equal(ri, lowest_argmin(d_row, 2))
+    assert torch.equal(ci, lowest_argmin(d_col, 1))
+    for got, want in zip((rd, ri, cd, ci), out_j):
+        np.testing.assert_array_equal(got[0].numpy(), want)
+
+
+@pytest.mark.parametrize("tiles", [(128, 64), (64, 32), (32, 96)])
+@pytest.mark.parametrize("window", [None, WINDOW])
+@pytest.mark.parametrize("sizes", [(2, 300, 200), (1, 1, 65), (2, 130, 3)])
+def test_b2_schedule_ragged_matches_plain(sizes, window, tiles):
+    """Ragged Ka and Kb (the Pallas kernel needs multiples of 1024): the
+    schedule's distances equal the plain version's exactly (the same
+    distance matrix, only reduced in another order), and its indices are
+    the lowest-index argmin, on real-valued and on +-1 descriptors."""
+    a, b, va, vb, xa, xb = (t(x) for x in desc_sets(14, *sizes, D=32))
+    for sign in (False, True):
+        if sign:
+            a, b = (torch.where(x > x.mean(-1, keepdim=True), 1.0, -1.0)
+                    for x in (a, b))
+        base = ck.window_distances(a, b, xa, xb, window)
+        rd, ri, cd, ci = b2_schedule(base, va, vb, *tiles)
+        rd_p, _, cd_p, _ = ck.mutual_nearest_plain(a, b, va, vb, xa, xb,
+                                                   window)
+        assert torch.equal(rd, rd_p) and torch.equal(cd, cd_p)
+        d_row = base + torch.where(vb, 0.0, ck.BIG)[:, None, :]
+        d_col = base + torch.where(va, 0.0, ck.BIG)[:, :, None]
+        assert torch.equal(ri, lowest_argmin(d_row, 2))
+        assert torch.equal(ci, lowest_argmin(d_col, 1))
+
+
+# ---------------------------------------------------------------------------
 # wrappers on the CPU: dispatch, counters, input checks
 # ---------------------------------------------------------------------------
 
 def spd_systems(seed, B, N, bad=()):
     """SPD systems with the gauge rows (tests/test_pallas_parity.py's
-    construction); the systems in ``bad`` get an eigenvalue of -1 below
-    the gauge block."""
+    construction; fewer than 6 gauge rows for N < 7); the systems in
+    ``bad`` get an eigenvalue of -1 below the gauge block."""
+    G = min(6, N - 1)
     rng = np.random.default_rng(seed)
     A = rng.standard_normal((B, N, N))
     S = A @ np.transpose(A, (0, 2, 1)) + 3.0 * np.eye(N)
     for b in bad:
-        low = np.linalg.eigvalsh(S[b, 6:, 6:]).min()
-        S[b, 6:, 6:] -= (low + 1.0) * np.eye(N - 6)
-    S[:, :6, :] = 0.0
-    S[:, :, :6] = 0.0
-    S[:, range(6), range(6)] = 1.0
+        low = np.linalg.eigvalsh(S[b, G:, G:]).min()
+        S[b, G:, G:] -= (low + 1.0) * np.eye(N - G)
+    S[:, :G, :] = 0.0
+    S[:, :, :G] = 0.0
+    S[:, range(G), range(G)] = 1.0
     g = rng.standard_normal((B, N))
-    g[:, :6] = 0.0
+    g[:, :G] = 0.0
     return S.astype(np.float32), g.astype(np.float32)
 
 
@@ -240,6 +411,27 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         ck.build()
 
 
+def test_probe_script_finds_its_cut_points():
+    """scripts/probe_kernels_cuda.py measures copies of B6's and B2's
+    sources, rewritten at fixed lines: every line it rewrites is still
+    there, and without a card it exits 1 before building anything."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / \
+        "probe_kernels_cuda.py"
+    spec = importlib.util.spec_from_file_location("probe_kernels_cuda", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    marks = probe.instrumented_b6().count("clock64()")
+    assert marks == 1 + len(probe.B6_PHASES)
+    for cuts in probe.B2_CUTS.values():
+        src = probe.b2_variant(cuts)
+        assert all(new in src for _, new in cuts)
+    if not torch.cuda.is_available():
+        assert probe.main([]) == 1
+
+
 # ---------------------------------------------------------------------------
 # on the card: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -276,10 +468,13 @@ def test_cuda_detect_maps_matches_plain(cuda, shape):
 @pytest.mark.parametrize("window", [None, WINDOW])
 @pytest.mark.parametrize("sizes", [(4, 2048, 2048, 128), (3, 1500, 1777, 128),
                                    (2, 1, 65, 128), (1, 130, 3, 128),
-                                   (2, 300, 200, 32), (2, 200, 300, 256)])
+                                   (2, 300, 200, 32), (2, 200, 300, 256),
+                                   (2, 300, 200, 16), (3, 100, 700, 128),
+                                   (3, 700, 40, 64)])
 def test_cuda_mutual_nearest_matches_plain(cuda, window, sizes):
     """Distances within 1e-5, indices equal where not tied, for ragged
-    sizes and descriptor widths 32 to 256."""
+    sizes (Ka or Kb below one tile of 128 rows or 64 columns) and
+    descriptor widths 16 to 256."""
     a, b, va, vb, xa, xb = (t(x, device=cuda) for x in desc_sets(6, *sizes))
     rd, ri, cd, ci = ck.mutual_nearest(a, b, va, vb, xa, xb, window)
     rd_p, ri_p, cd_p, ci_p = ck.mutual_nearest_plain(a, b, va, vb, xa, xb,
@@ -349,11 +544,20 @@ def test_cuda_akaze_octave_rejects_too_many_steps(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(64, 144, 144), (1, 12, 12), (7, 48, 48)])
+@pytest.mark.parametrize("shape", [(64, 144, 144), (1, 12, 12), (7, 48, 48),
+                                   (5, 1, 1), (3, 16, 16), (3, 17, 17),
+                                   (3, 32, 32), (3, 33, 33), (3, 145, 145),
+                                   (3, "max_n", "max_n")])
 def test_cuda_cholesky_solve_matches_plain(cuda, shape):
     """B6 against the float64 solution: its error relative to max |x| per
-    system at most 4x the plain version's + 1e-6; one launch."""
-    S, g = (t(v, device=cuda) for v in spd_systems(9, shape[0], shape[1]))
+    system at most 4x the plain version's + 1e-6; one launch. N from 1
+    to the largest N it takes, on both sides of the one-warp variant's
+    N <= 32 and of its 32-wide blocks."""
+    N = shape[1]
+    if N == "max_n":
+        ck.build()
+        N = ck.cholesky_max_n
+    S, g = (t(v, device=cuda) for v in spd_systems(9, shape[0], N))
     ck.reset_counters()
     x_k = ck.cholesky_solve(S, g)
     assert ck.LAUNCHES["cholesky_solve"] == 1
@@ -367,10 +571,19 @@ def test_cuda_cholesky_solve_matches_plain(cuda, shape):
 
 
 @pytest.mark.cuda
-def test_cuda_cholesky_solve_nan_row(cuda):
+@pytest.mark.parametrize("N, pivot", [(48, None), (144, 10), (144, 140),
+                                      (12, 9)])
+def test_cuda_cholesky_solve_nan_row(cuda, N, pivot):
     """A system that is not positive definite gets an all-NaN row, as in
-    the plain version; the other rows equal B6's solve of them alone."""
-    S, g = (t(v, device=cuda) for v in spd_systems(10, 8, 48, bad=(3,)))
+    the plain version; the other rows equal B6's solve of them alone. It
+    fails part way (an eigenvalue of -1), or at a decoupled pivot of -1 in
+    the first or the last 32-wide block, or in the one-warp variant."""
+    S, g = spd_systems(10, 8, N, bad=(3,) if pivot is None else ())
+    if pivot is not None:
+        S[3, pivot, :] = 0.0
+        S[3, :, pivot] = 0.0
+        S[3, pivot, pivot] = -1.0
+    S, g = t(S, device=cuda), t(g, device=cuda)
     x = ck.cholesky_solve(S, g)
     x_p = ck.cholesky_solve_plain(S, g)
     keep = [0, 1, 2, 4, 5, 6, 7]
@@ -385,7 +598,7 @@ def test_cuda_cholesky_solve_nan_row(cuda):
 @pytest.mark.cuda
 def test_cuda_cholesky_solve_rejects_large_n(cuda):
     top = ck.build().slam_cholesky_max_n()
-    assert top >= 144
+    assert top == ck.cholesky_max_n >= 152
     S = torch.eye(top + 1, device=cuda)[None].contiguous()
     g = torch.ones((1, top + 1), device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
