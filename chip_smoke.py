@@ -9,9 +9,13 @@ Phases (any failure exits non-zero; no phase catches its own failure):
   1. device: a CUDA card is required; prints the card's name and power
      limit, builds the kernels from csrc/ with nvcc and times the build;
   2. kernel B1 (detect_maps) against its plain version on the card, at
-     the frontend's shape (64 rendered images of 376x1241), on 4 of them
-     and at an odd size, with stated tolerances, then the median time of
-     20 runs of each at the frontend's shape;
+     the frontend's shape (64 rendered images of 376x1241), on 4 of them,
+     at an odd size and at sizes around its blocks' edges (widths one less,
+     equal and one more than one and two blocks of 246 columns, heights
+     around one and two chunks of 32 rows, an image narrower than a
+     warp), with stated tolerances, then the median time of 20 runs of
+     each at the frontend's shape and the wrapper's host microseconds per
+     call at (1, 40, 60);
   2b. kernels B4 (harris_response) and B3 (orientation_maps), B1's phases
      alone, against their plain versions with B1's tolerances: B4 at the
      frontend's shape, B3 at both AKAZE octave shapes, (64, 376, 1241) and
@@ -20,7 +24,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      shapes, on the AKAZE path's own inputs (blurred rendered frames,
      their per-frame contrast k), and at (2, 47, 156), KITTI's octave 3,
      where the halo is a large share of the image and the wrap matters;
-     median times;
+     at sizes around its 72 x 64 tile's edges (one less, equal and one
+     more than one and two tiles), narrower than a tile and smaller than
+     the halo; at 4 steps on the full octave shape (6 steps take the
+     kernel's compile-time path, every other count its run-time path: the
+     log names the path); median times, and the wrapper's host
+     microseconds per call at (1, 40, 60);
   2d. kernel B6 (cholesky_solve) against its plain version on the card:
      the real reduced pose systems of the scene's windows (frontend on the
      card, keyframes, build_windows + init_landmarks, the first depth
@@ -264,7 +273,7 @@ def check_b3(ck, frames: torch.Tensor, label: str) -> float:
 
 
 def check_b5(ck, imgs: torch.Tensor, k: torch.Tensor, sigma: float,
-             label: str):
+             label: str, steps: int = 6):
     """Kernel B5 vs its plain version on the same images and contrasts.
 
     Tolerances: L within 1e-5 of max |L| (six diffusion steps, each
@@ -272,8 +281,8 @@ def check_b5(ck, imgs: torch.Tensor, k: torch.Tensor, sigma: float,
     max |resp| (second differences of L cancel up to ~10x of L's error);
     the NMS -inf pattern equal except at near-ties. Returns (max abs err,
     the plain version's L, for the next octave)."""
-    L_k, r_k, n_k = ck.akaze_octave(imgs, k, 6, sigma=sigma)
-    L_p, r_p, n_p = ck.akaze_octave_plain(imgs, k, 6, sigma=sigma)
+    L_k, r_k, n_k = ck.akaze_octave(imgs, k, steps, sigma=sigma)
+    L_p, r_p, n_p = ck.akaze_octave_plain(imgs, k, steps, sigma=sigma)
     sync(imgs)
     for name, t_ in (("L", L_k), ("resp", r_k)):
         if not torch.isfinite(t_).all():
@@ -286,9 +295,11 @@ def check_b5(ck, imgs: torch.Tensor, k: torch.Tensor, sigma: float,
     if r_err > 1e-4 * r_scale:
         fail(f"B5 {label}: resp err {r_err} > 1e-4 * {r_scale}")
     n_mism = nms_mismatches(n_k, n_p, r_p, r_scale, f"B5 {label}")
-    log(f"[B5] {label} {tuple(imgs.shape)}: L err {L_err:.3e} (scale "
-        f"{L_scale:.3e}), resp err {r_err:.3e} (scale {r_scale:.3e}), nms "
-        f"mismatches {n_mism}")
+    path = ("compile-time" if ck.build().slam_akaze_static_path(steps)
+            else "run-time")
+    log(f"[B5] {label} {tuple(imgs.shape)}, {steps} steps ({path} path): L "
+        f"err {L_err:.3e} (scale {L_scale:.3e}), resp err {r_err:.3e} (scale "
+        f"{r_scale:.3e}), nms mismatches {n_mism}")
     return max(L_err, r_err), L_p
 
 
@@ -820,6 +831,12 @@ def main(argv=None) -> int:
                  check_b1(ck, path[::chunk // 2][:4].contiguous(),
                           "4 rendered"),
                  check_b1(ck, odd, "odd"))
+    # around the kernel's edges: a block owns at most 246 output columns
+    # and at least 32 rows
+    for shape in ((1, 31, 245), (1, 32, 246), (1, 33, 247), (2, 63, 491),
+                  (1, 64, 492), (1, 65, 493), (1, 40, 9)):
+        edge = torch.rand(shape, generator=gen, device="cuda")
+        b1_err = max(b1_err, check_b1(ck, edge, "edge"))
     b1_ms = median_ms(lambda: ck.detect_maps(path))
     b1_plain_ms = median_ms(lambda: ck.detect_maps_plain(path))
     # 1 plane in; resp, nms and 8 orientation maps out
@@ -830,12 +847,20 @@ def main(argv=None) -> int:
                                        OPS_PER_PIXEL["harris_response"] * px)}
     log(f"[B1] {tuple(path.shape)} median of {TIMING_RUNS}: kernel "
         f"{b1_ms:.3f} ms, plain {b1_plain_ms:.3f} ms ({card})")
+    # the wrappers' host cost where the launch is all there is to it
+    tiny = torch.rand((1, 40, 60), generator=gen, device="cuda")
+    log(f"[B1] wrapper host time at {tuple(tiny.shape)}: "
+        f"{host_us(lambda: ck.detect_maps(tiny)):.2f} us per call (mean of "
+        f"{HOST_CALLS} calls, no sync between) ({card})")
 
     # ---- 2b. kernels B4 and B3 ---------------------------------------------
     # B4 has no caller in the pipeline: its launch count is this phase's
     ck.reset_counters()
     b4_err = check_b4(ck, path, "frontend chunk")
     b4_launches = ck.LAUNCHES["harris_response"]
+    for shape in ((1, 33, 247), (2, 63, 491)):
+        edge = torch.rand(shape, generator=gen, device="cuda")
+        b4_err = max(b4_err, check_b4(ck, edge, "edge"))
     b4_ms = median_ms(lambda: ck.harris_response(path))
     b4_plain_ms = median_ms(lambda: ck.harris_response_plain(path))
     log(f"[B4] {tuple(path.shape)} median of {TIMING_RUNS}: kernel "
@@ -846,7 +871,11 @@ def main(argv=None) -> int:
     oct1 = features.downsample2(oct0)
     b3_err = max(check_b3(ck, oct0, "octave 0"),
                  check_b3(ck, oct1, "octave 1"),
-                 check_b3(ck, odd, "odd"))
+                 check_b3(ck, odd, "odd"),
+                 check_b3(ck, torch.rand((1, 33, 247), generator=gen,
+                                         device="cuda"), "edge"),
+                 check_b3(ck, torch.rand((2, 63, 491), generator=gen,
+                                         device="cuda"), "edge"))
     bounds["orientation_maps"] = bound(4 * px * 9,
                                        OPS_PER_PIXEL["orientation_maps"] * px)
     b3_times = {}
@@ -869,6 +898,16 @@ def main(argv=None) -> int:
         small = features.downsample2(small)
     b5_err = max(b5_err, check_b5(ck, small, k[:2], 12.8,
                                   "KITTI octave 3")[0])
+    # around the kernel's edges: a CTA owns a 72 x 64 output tile; an image
+    # smaller than the halo wraps more than once
+    for shape in ((1, 63, 71), (1, 64, 72), (1, 65, 73), (2, 127, 143),
+                  (1, 128, 144), (1, 129, 145), (1, 30, 20), (1, 13, 9)):
+        edge = torch.rand(shape, generator=gen, device="cuda")
+        b5_err = max(b5_err, check_b5(ck, edge, k[:shape[0]], 3.2, "edge")[0])
+    # every count but 6 takes the run-time path
+    b5_err = max(b5_err, check_b5(ck, oct0, k, 1.6, "octave 0", steps=4)[0],
+                 check_b5(ck, small, k[:2], 12.8, "KITTI octave 3",
+                          steps=9)[0])
     bounds["akaze_octave"] = bound(4 * px * 4 + nbytes(k),
                                    OPS_PER_PIXEL["akaze_octave"] * px)
     b5_times = {}
@@ -879,6 +918,9 @@ def main(argv=None) -> int:
         log(f"[B5] {label} {tuple(x.shape)} median of {TIMING_RUNS}: kernel "
             f"{b5_times[label][0]:.3f} ms, plain {b5_times[label][1]:.3f} "
             f"ms ({card})")
+    log(f"[B5] wrapper host time at {tuple(tiny.shape)}: "
+        f"{host_us(lambda: ck.akaze_octave(tiny, k[:1], 6)):.2f} us per call "
+        f"(mean of {HOST_CALLS} calls, no sync between) ({card})")
     del path, oct0, oct1, L0
 
     # ---- 2d. kernel B6 ------------------------------------------------------

@@ -19,255 +19,318 @@
 // -inf. So the kernel matches its plain version over the whole image,
 // where the TPU kernel's zero canvas differed within 4-6 px of the edge.
 //
-// What bounds it on the H100: device memory. Each pixel is read once
-// (plus a 5-px halo) and up to ten float32 channels are written: for B1
-// at the frontend's shape, 64 images of 376x1241, that is ~1.2 GB of
-// writes per chunk against ~0.12 GB of reads, ~0.4 ms at 3.35 TB/s. The
-// arithmetic (~200 flops per pixel) is far below the card's float32 rate.
+// What bounds it on the H100. By bytes, device memory: each pixel is read
+// once and up to ten float32 planes are written, ~1.3 GB per chunk of 64
+// images of 376x1241 for B1, ~0.39 ms at 3.35 TB/s. In practice the
+// schedulers' rate and the traffic between threads: a design that
+// stages every intermediate of a 32x32 tile in shared memory moves ~257
+// four-byte values per output pixel through it (the 4x4 box sums alone,
+// redone for each of the 8 channels, 57% of that) behind 24 barriers per
+// tile, and runs at a quarter of the bytes bound. This design fights that,
+// not the bytes.
 //
-// Design: one CTA per (image, 32x32 output tile), 256 threads. The
-// image tile with its 5-px halo is staged once in shared memory; every
-// stage (Sobel, separable blurs, NMS max, atan2 binning, separable box
-// sums) runs out of shared memory, so intermediates never touch device
-// memory; the only global traffic is the halo'd input read and the
-// coalesced output rows of each channel. Shared memory is one buffer
-// sized for the phases the variant runs (42 KB with the Harris phase,
-// 38 KB for the orientation phase alone); with both, the Harris regions
-// are reused by the orientation phase. atan2f replaces the polynomial the
-// TPU needed (Mosaic had no atan2).
+// Design: a block of 256 threads owns 256 image columns side by side (at
+// most 246 output columns and the 5-column halo of Sobel 1 + Gaussian 2 +
+// NMS 2 on each side) and marches down a chunk of rows, one image row per
+// iteration. A thread holds its column's sliding windows in registers: the
+// last image rows for the Sobel taps, 4 rows of the row-blurred gradient
+// products and of the orientation blur for the vertical 5-tap blurs, the
+// row maxima for the separable 5x5 NMS (row max, then column max: exact in
+// any order), and the last 3 rows' 8-channel vectors, so that a pixel's
+// soft-binned vector is built once and the 8 column sums of a row come from
+// registers. Only the horizontal taps cross threads, through one line of
+// shared memory per exchanged value: the image row, the two gradients, the
+// response, the blurred row and the 8 column sums, 13 writes and 42 reads
+// per thread and row, ~61 per output pixel with the halo and the rows a
+// chunk repeats (B4 4 + 16, B3 10 + 28). Every stage reads the line that
+// the stage before it wrote one iteration earlier, so the stages lag each
+// other by one more row (output row = input row - 8), the lines are kept
+// twice, and one barrier per iteration does for the whole block: 4 per
+// 1024 output pixels. Sums keep the order of the staged design (taps left
+// to right and top to bottom, box sums ((v0 + v1) + v2) + v3, rows then
+// columns), so no running sum drifts. A warp stores 32 consecutive floats
+// of each plane straight from registers. The blocks of a row are of equal
+// width, and the rows are cut into the number of chunks that makes the
+// grid's waves times a chunk's iterations least (a chunk repeats the 13
+// rows above it). atan2 is a polynomial without a division's slow path.
+// Tried and dropped: one warp per 22-column strip exchanging by shuffles
+// with no barrier (5 of 16 lanes are halo, and its stores cover no whole
+// sectors unless staged, which cost a third more work per row).
+//
+// Registers, from nvcc -Xptxas -v for sm_90a (no spills): B1 128, B3 116,
+// B4 79 at 256 threads; shared memory 27,040, 20,800 and 8,320 B; 2, 2 and
+// 3 blocks an SM.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "launch.cuh"
 
 namespace {
 
-constexpr int TILE = 32;             // output tile side
-constexpr int HALO = 5;              // Sobel 1 + Gaussian 2 + NMS 2
-constexpr int R = TILE + 2 * HALO;   // 42: staged image region side
-constexpr int G = TILE + 8;          // 40: Harris gradient region side
-constexpr int S = TILE + 4;          // 36: Harris response region side
-constexpr int OH = TILE + 6;         // 38: orientation blur region side
-constexpr int OC = TILE + 3;         // 35: orientation channel region side
-constexpr int NT = 256;
-
-// shared-memory layout (floats). Harris phase:
-constexpr int OFF_IMG = 0;                       // R x R image region
-constexpr int OFF_GX = OFF_IMG + R * R;          // G x G
-constexpr int OFF_GY = OFF_GX + G * G;           // G x G
-constexpr int OFF_HXX = OFF_GY + G * G;          // G x S (row blurs)
-constexpr int OFF_HYY = OFF_HXX + G * S;
-constexpr int OFF_HXY = OFF_HYY + G * S;
-constexpr int OFF_RESP = OFF_HXY + G * S;        // S x S response
-constexpr int HARRIS_FLOATS = OFF_RESP + S * S;  // 10580 floats
-// orientation phase (after the image region; reuses the Harris regions):
-constexpr int OFF_BH = OFF_IMG + R * R;          // R x OH row blur
-constexpr int OFF_BV = OFF_BH + R * OH;          // OH x OH blur
-constexpr int OFF_M0 = OFF_BV + OH * OH;         // OC x OC weight, bin b0
-constexpr int OFF_M1 = OFF_M0 + OC * OC;         // OC x OC weight, bin b0+1
-constexpr int OFF_B0 = OFF_M1 + OC * OC;         // OC x OC bin index
-constexpr int OFF_VBOX = OFF_B0 + OC * OC;       // TILE x OC column sums
-constexpr int ORIENT_FLOATS = OFF_VBOX + TILE * OC;  // 9599 floats
-static_assert(ORIENT_FLOATS <= HARRIS_FLOATS, "orientation layout");
+constexpr int HALO = 5;               // Sobel 1 + Gaussian 2 + NMS 2
+constexpr int WARPS = 8;
+constexpr int NT = 32 * WARPS;        // a block's columns, halo included
+constexpr int SPAN = NT - 2 * HALO;   // of which it stores at most these
+constexpr int PAD = 2;                // a line's cells before and after
+constexpr int LINE = NT + 2 * PAD;
+constexpr int LAG = 13;               // iterations before a chunk's first row
+constexpr int MIN_ROWS = 32;          // fewest output rows of a chunk
 
 struct Taps {
   float h[5];  // Gaussian sigma 1.5 (structure tensor)
   float o[5];  // Gaussian sigma 1.0 (orientation blur)
 };
 
-__device__ __forceinline__ bool inside(int y, int x, int H, int W) {
-  return y >= 0 && y < H && x >= 0 && x < W;
+// Sobel taps / 8 on rows a (above), b (center: only its outer columns are
+// read), c (below), each {x - 1, x, x + 1}
+__device__ __forceinline__ void sobel(const float (&a)[3], const float (&b)[3],
+                                      const float (&c)[3], float& gx,
+                                      float& gy) {
+  gx = ((a[2] - a[0]) + 2.f * (b[2] - b[0]) + (c[2] - c[0])) * 0.125f;
+  gy = ((c[0] - a[0]) + 2.f * (c[1] - a[1]) + (c[2] - a[2])) * 0.125f;
 }
 
-// Harris phase: resp and nms of the tile from the staged image region.
-__device__ __forceinline__ void harris_phase(
-    float* buf, const float* s_img, float* __restrict__ resp,
-    float* __restrict__ nms, int f, int y0, int x0, int H, int W, float k,
-    const Taps& taps) {
-  const int tid = threadIdx.x;
-  const size_t plane = (size_t)H * W;
-  // gradients: (p, q) <-> image (y0 - 4 + p, x0 - 4 + q), zero outside
-  float* s_gx = buf + OFF_GX;
-  float* s_gy = buf + OFF_GY;
-  for (int idx = tid; idx < G * G; idx += NT) {
-    const int p = idx / G, q = idx % G;
-    float gx = 0.f, gy = 0.f;
-    if (inside(y0 - 4 + p, x0 - 4 + q, H, W)) {
-      const float* c = s_img + (p + 1) * R + (q + 1);
-      gx = ((c[-R + 1] - c[-R - 1]) + 2.f * (c[1] - c[-1])
-            + (c[R + 1] - c[R - 1])) * 0.125f;
-      gy = ((c[R - 1] - c[-R - 1]) + 2.f * (c[R] - c[-R])
-            + (c[R + 1] - c[-R + 1])) * 0.125f;
-    }
-    s_gx[idx] = gx;
-    s_gy[idx] = gy;
-  }
-  __syncthreads();
+// The windows are rings: the value an iteration t makes lies in slot t & 3
+// (t & 1 of a ring of two), and the row loop is unrolled by four with the
+// phase PH = t & 3 a compile-time value, so every slot is a fixed register
+// and nothing is moved to shift a window.
 
-  // row blur of the gradient products: (p, q) centered on gradient col q+2
-  float* s_hxx = buf + OFF_HXX;
-  float* s_hyy = buf + OFF_HYY;
-  float* s_hxy = buf + OFF_HXY;
-  for (int idx = tid; idx < G * S; idx += NT) {
-    const int p = idx / S, q = idx % S;
-    float sxx = 0.f, syy = 0.f, sxy = 0.f;
+// 5 taps over a ring's 4 rows (oldest first) and the new one
+template <int PH>
+__device__ __forceinline__ float blur5(const float (&t)[5],
+                                       const float (&w)[4], float v) {
+  float s = 0.f;
 #pragma unroll
-    for (int t = 0; t < 5; ++t) {
-      const float a = s_gx[p * G + q + t], b = s_gy[p * G + q + t];
-      sxx += taps.h[t] * (a * a);
-      syy += taps.h[t] * (b * b);
-      sxy += taps.h[t] * (a * b);
-    }
-    s_hxx[idx] = sxx;
-    s_hyy[idx] = syy;
-    s_hxy[idx] = sxy;
-  }
-  __syncthreads();
-
-  // column blur + response: (p, q) <-> image (y0 - 2 + p, x0 - 2 + q),
-  // -inf outside (the NMS window's outside)
-  float* s_r = buf + OFF_RESP;
-  for (int idx = tid; idx < S * S; idx += NT) {
-    const int p = idx / S, q = idx % S;
-    float sxx = 0.f, syy = 0.f, sxy = 0.f;
-#pragma unroll
-    for (int t = 0; t < 5; ++t) {
-      sxx += taps.h[t] * s_hxx[(p + t) * S + q];
-      syy += taps.h[t] * s_hyy[(p + t) * S + q];
-      sxy += taps.h[t] * s_hxy[(p + t) * S + q];
-    }
-    const float det = sxx * syy - sxy * sxy;
-    const float tr = sxx + syy;
-    s_r[idx] = inside(y0 - 2 + p, x0 - 2 + q, H, W) ? det - k * tr * tr
-                                                    : -INFINITY;
-  }
-  __syncthreads();
-
-  for (int idx = tid; idx < TILE * TILE; idx += NT) {
-    const int a = idx / TILE, b = idx % TILE;
-    const int y = y0 + a, x = x0 + b;
-    if (!inside(y, x, H, W)) continue;
-    const float c = s_r[(a + 2) * S + (b + 2)];
-    float m = -INFINITY;
-#pragma unroll
-    for (int u = 0; u < 5; ++u)
-#pragma unroll
-      for (int v = 0; v < 5; ++v) m = fmaxf(m, s_r[(a + u) * S + (b + v)]);
-    resp[f * plane + (size_t)y * W + x] = c;
-    nms[f * plane + (size_t)y * W + x] = c >= m ? c : -INFINITY;
-  }
+  for (int u = 0; u < 4; ++u) s += t[u] * w[(PH + u) & 3];
+  return s + t[4] * v;
 }
 
-// Orientation phase: the 8 maps of the tile from the staged image region.
-__device__ __forceinline__ void orient_phase(
-    float* buf, const float* s_img, float* __restrict__ maps, int f, int y0,
-    int x0, int H, int W, const Taps& taps) {
-  const int tid = threadIdx.x;
-  const size_t plane = (size_t)H * W;
-  // row blur: (i, q) <-> image row y0 - 5 + i, col x0 - 3 + q
-  float* s_bh = buf + OFF_BH;
-  for (int idx = tid; idx < R * OH; idx += NT) {
-    const int i = idx / OH, q = idx % OH;
-    float s = 0.f;
-#pragma unroll
-    for (int t = 0; t < 5; ++t) s += taps.o[t] * s_img[i * R + q + t];
-    s_bh[idx] = s;
-  }
-  __syncthreads();
-  // column blur: (p, q) <-> image (y0 - 3 + p, x0 - 3 + q), zero outside
-  float* s_bv = buf + OFF_BV;
-  for (int idx = tid; idx < OH * OH; idx += NT) {
-    const int p = idx / OH, q = idx % OH;
-    float s = 0.f;
-#pragma unroll
-    for (int t = 0; t < 5; ++t) s += taps.o[t] * s_bh[(p + t) * OH + q];
-    s_bv[idx] = inside(y0 - 3 + p, x0 - 3 + q, H, W) ? s : 0.f;
-  }
-  __syncthreads();
-  // Sobel, magnitude, soft bins: (c, d) <-> image (y0 - 1 + c, x0 - 1 + d)
-  float* s_m0 = buf + OFF_M0;
-  float* s_m1 = buf + OFF_M1;
-  int* s_b0 = reinterpret_cast<int*>(buf + OFF_B0);
-  const float kPi = 3.14159265358979323846f;
-  const float kTwoPi = 6.28318530717958647692f;
-  for (int idx = tid; idx < OC * OC; idx += NT) {
-    const int c = idx / OC, d = idx % OC;
-    float m0 = 0.f, m1 = 0.f;
-    int b0 = 0;
-    if (inside(y0 - 1 + c, x0 - 1 + d, H, W)) {
-      const float* z = s_bv + (c + 2) * OH + (d + 2);
-      const float gx = ((z[-OH + 1] - z[-OH - 1]) + 2.f * (z[1] - z[-1])
-                        + (z[OH + 1] - z[OH - 1])) * 0.125f;
-      const float gy = ((z[OH - 1] - z[-OH - 1]) + 2.f * (z[OH] - z[-OH])
-                        + (z[OH + 1] - z[-OH + 1])) * 0.125f;
-      const float mag = sqrtf(gx * gx + gy * gy + 1e-12f);
-      const float bin_f = (atan2f(gy, gx) + kPi) / kTwoPi * 8.f;
-      const float fl = floorf(bin_f);
-      const float w1 = bin_f - fl;
-      b0 = (((int)fl) % 8 + 8) % 8;
-      m0 = mag * (1.f - w1);
-      m1 = mag * w1;
-    }
-    s_m0[idx] = m0;
-    s_m1[idx] = m1;
-    s_b0[idx] = b0;
-  }
-  __syncthreads();
-  // per channel: column sums over ch rows [a, a+3] (image rows y-1..y+2),
-  // then row sums over cols [b, b+3] (image cols x-1..x+2)
-  float* s_vbox = buf + OFF_VBOX;
-  for (int o = 0; o < 8; ++o) {
-    for (int idx = tid; idx < TILE * OC; idx += NT) {
-      const int a = idx / OC, d = idx % OC;
-      float s = 0.f;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int e = (a + u) * OC + d;
-        const int b0 = s_b0[e];
-        s += (b0 == o ? s_m0[e] : 0.f) + (((b0 + 1) & 7) == o ? s_m1[e] : 0.f);
-      }
-      s_vbox[idx] = s;
-    }
-    __syncthreads();
-    float* out = maps + ((size_t)f * 8 + o) * plane;
-    for (int idx = tid; idx < TILE * TILE; idx += NT) {
-      const int a = idx / TILE, b = idx % TILE;
-      const int y = y0 + a, x = x0 + b;
-      if (!inside(y, x, H, W)) continue;
-      const float* v = s_vbox + a * OC + b;
-      out[(size_t)y * W + x] = ((v[0] + v[1]) + v[2]) + v[3];
-    }
-    __syncthreads();
-  }
+// atan2(y, x) in (-pi, pi], within 4e-7: the octant's ratio by an
+// approximate division, its arctangent by the odd polynomial of Cephes'
+// atanf on [0, tan(pi / 8)], above that through (t - 1) / (t + 1). No
+// branch and no call, where atan2f has two divisions with slow paths.
+__device__ __forceinline__ float atan2_poly(float y, float x) {
+  const float ax = fabsf(x), ay = fabsf(y);
+  const float t = __fdividef(fminf(ax, ay), fmaxf(fmaxf(ax, ay), 1e-37f));
+  const bool big = t > 0.41421356237f;
+  const float u = big ? __fdividef(t - 1.f, t + 1.f) : t;
+  const float z = u * u;
+  float a = (((8.05374449538e-2f * z - 1.38776856032e-1f) * z
+              + 1.99777106478e-1f) * z - 3.33329491539e-1f) * z * u + u;
+  a = big ? a + 0.78539816339744830962f : a;
+  a = ay > ax ? 1.57079632679489661923f - a : a;
+  a = x < 0.f ? 3.14159265358979323846f - a : a;
+  return y < 0.f ? -a : a;
 }
 
 template <bool HARRIS, bool ORIENT>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 2)
 maps_kernel(const float* __restrict__ img, float* __restrict__ resp,
             float* __restrict__ nms, float* __restrict__ maps, int H, int W,
-            float k, Taps taps) {
+            int rows, int pitch, float k, Taps taps) {
   static_assert(HARRIS || ORIENT, "a variant runs at least one phase");
-  __shared__ float buf[HARRIS ? HARRIS_FLOATS : ORIENT_FLOATS];
-  const int f = blockIdx.z;
-  const int y0 = blockIdx.y * TILE;
-  const int x0 = blockIdx.x * TILE;
-  const int tid = threadIdx.x;
-  const float* im = img + f * (size_t)H * W;
+  // the lines of one row that the threads exchange: the image, then the
+  // gradients and the response, then the blurred image and the 8 channels'
+  // column sums
+  constexpr int L_GX = 1, L_GY = 2, L_R = 3;
+  constexpr int L_BV = HARRIS ? 4 : 1, L_CS = L_BV + 1;
+  constexpr int NL = 1 + (HARRIS ? 3 : 0) + (ORIENT ? 9 : 0);
+  extern __shared__ float lines[];            // [2][NL][LINE]
+  const int q = threadIdx.x;                  // the thread's column here
+  const int ys = blockIdx.y * rows;           // output rows [ys, ys + nrows)
+  const int nrows = min(rows, H - ys);
+  const int x0 = blockIdx.x * pitch;          // output columns [x0, x0 + pitch)
+  const int x = x0 - HALO + q;                // the thread's image column
+  const bool col_in = x >= 0 && x < W;
+  const bool stores = q >= HALO && q < HALO + pitch && x < W;
+  // a warp whose columns all lie past the halo only keeps the barriers
+  const int q0 = q & ~31;
+  const bool active = q0 < pitch + 2 * HALO && x0 - HALO + q0 < W + HALO;
+  const int plane = H * W;
+  const float* im = img + (size_t)blockIdx.z * plane;
+  float* out_r = HARRIS ? resp + (size_t)blockIdx.z * plane : nullptr;
+  float* out_n = HARRIS ? nms + (size_t)blockIdx.z * plane : nullptr;
+  float* out_m = ORIENT ? maps + (size_t)blockIdx.z * 8 * plane : nullptr;
+  // row y of this thread's column, at im[off], zero outside the image
+  auto row_in = [&](int y) { return col_in && (unsigned)y < (unsigned)H; };
+  auto load = [&](int y, int off) {
+    return row_in(y) ? __ldg(im + off) : 0.f;
+  };
 
-  // image region: (i, j) <-> image (y0 - 5 + i, x0 - 5 + j), zero outside
-  float* s_img = buf + OFF_IMG;
-  for (int idx = tid; idx < R * R; idx += NT) {
-    const int y = y0 - HALO + idx / R, x = x0 - HALO + idx % R;
-    s_img[idx] = inside(y, x, H, W) ? im[(size_t)y * W + x] : 0.f;
+  for (int i = q; i < 2 * NL * LINE; i += NT) lines[i] = 0.f;
+
+  // the rings; iteration t takes in image row yi = ys - 5 + t and makes
+  // output row j = t - 13 of the chunk
+  float prev = 0.f;                    // image row yi-1
+  float irow[2][3] = {};               // image rows yi-3, yi-2 at x-1..x+1
+  float pgx = 0.f, pgy = 0.f;          // gradients, row yi-3
+  float hxx[4] = {}, hyy[4] = {}, hxy[4] = {};  // row blurs, rows yi-7..yi-4
+  float rv[4] = {};                    // response, rows yi-9..yi-6
+  float rm[4] = {};                    // row maxima, rows yi-10..yi-7
+  float bh[4] = {};                    // orientation row blur, yi-5..yi-2
+  float pbv = 0.f;                     // blurred image, row yi-4
+  float brow[2][3] = {};               // blur rows yi-6, yi-5 at x-1..x+1
+  float vw[4][8] = {};                 // channel vectors, rows yi-9..yi-6
+  float pcs[8] = {};                   // column sums of output row yi-8
+  int in_off = (ys - HALO) * W + x;    // of the next load
+  float n0 = load(ys - HALO, in_off);
+  float n1 = load(ys - HALO + 1, in_off += W);
+  int out_off = (ys - LAG) * W + x;    // of this iteration's output
+  __syncthreads();  // lines zeroed
+
+  auto step = [&](auto phase, int t) {
+    constexpr int PH = decltype(phase)::value;   // t & 3
+    constexpr int P2 = PH & 1, Q2 = P2 ^ 1;      // rings of two: t-2, t-1
+    // this iteration's lines, and those of the one before it
+    float* wr = lines + P2 * (NL * LINE) + PAD + q;
+    const float* rd = lines + Q2 * (NL * LINE) + PAD + q;
+    const int yi = ys - HALO + t;
+    const int j = t - LAG;
+    const bool emit = stores && j >= 0 && j < nrows;
+    const float cur = n0;
+    n0 = n1;
+    n1 = load(yi + 2, in_off += W);
+    wr[0] = cur;
+    float res_c, res_n, box[8];          // this iteration's outputs
+    const float ic[3] = {rd[-1], prev, rd[1]};   // image row yi-1
+
+    if constexpr (HARRIS) {
+      // gradients of row yi-2, zero outside the image
+      float gx, gy;
+      sobel(irow[P2], irow[Q2], ic, gx, gy);
+      const bool in2 = row_in(yi - 2);
+      gx = in2 ? gx : 0.f;
+      gy = in2 ? gy : 0.f;
+      wr[L_GX * LINE] = gx;
+      wr[L_GY * LINE] = gy;
+      // row blur of the gradient products, row yi-3
+      const float* ga = rd + L_GX * LINE;
+      const float* gb = rd + L_GY * LINE;
+      const float a5[5] = {ga[-2], ga[-1], pgx, ga[1], ga[2]};
+      const float b5[5] = {gb[-2], gb[-1], pgy, gb[1], gb[2]};
+      float sxx = 0.f, syy = 0.f, sxy = 0.f;
+#pragma unroll
+      for (int u = 0; u < 5; ++u) {
+        sxx += taps.h[u] * (a5[u] * a5[u]);
+        syy += taps.h[u] * (b5[u] * b5[u]);
+        sxy += taps.h[u] * (a5[u] * b5[u]);
+      }
+      // column blur and response, row yi-5; -inf outside (the NMS
+      // window's outside)
+      const float cxx = blur5<PH>(taps.h, hxx, sxx);
+      const float cyy = blur5<PH>(taps.h, hyy, syy);
+      const float cxy = blur5<PH>(taps.h, hxy, sxy);
+      const float det = cxx * cyy - cxy * cxy;
+      const float tr = cxx + cyy;
+      const float r = row_in(yi - 5) ? det - k * tr * tr : -INFINITY;
+      wr[L_R * LINE] = r;
+      // 5x5 max around row yi-8: row maximum of row yi-6, then the
+      // maximum over rows yi-10 .. yi-6
+      const float* ra = rd + L_R * LINE;
+      const float m = fmaxf(fmaxf(fmaxf(ra[-2], ra[-1]), fmaxf(ra[1], ra[2])),
+                            rv[(PH + 3) & 3]);
+      const float mm = fmaxf(fmaxf(fmaxf(rm[0], rm[1]), fmaxf(rm[2], rm[3])),
+                             m);
+      res_c = rv[(PH + 1) & 3];
+      res_n = res_c >= mm ? res_c : -INFINITY;
+      pgx = gx;
+      pgy = gy;
+      hxx[PH] = sxx;
+      hyy[PH] = syy;
+      hxy[PH] = sxy;
+      rv[PH] = r;
+      rm[PH] = m;
+    }
+
+    if constexpr (ORIENT) {
+      // row blur of image row yi-1
+      const float i5[5] = {rd[-2], ic[0], prev, ic[2], rd[2]};
+      float s = 0.f;
+#pragma unroll
+      for (int u = 0; u < 5; ++u) s += taps.o[u] * i5[u];
+      // column blur, row yi-3, zero outside the image
+      const float bv = row_in(yi - 3) ? blur5<PH>(taps.o, bh, s) : 0.f;
+      wr[L_BV * LINE] = bv;
+      // Sobel, magnitude and soft bins of row yi-5, zero outside
+      const float* ba = rd + L_BV * LINE;
+      const float bc[3] = {ba[-1], pbv, ba[1]};  // blur row yi-4
+      float gx, gy;
+      sobel(brow[P2], brow[Q2], bc, gx, gy);
+      const float kPi = 3.14159265358979323846f;
+      const float kBinsPerRad = 8.f / 6.28318530717958647692f;
+      const float sq = gx * gx + gy * gy + 1e-12f;
+      const float mag = sq * rsqrtf(sq);
+      const float bin_f = (atan2_poly(gy, gx) + kPi) * kBinsPerRad;
+      const float fl = floorf(bin_f);
+      const float w1 = bin_f - fl;
+      const bool in5 = row_in(yi - 5);
+      const int b0 = ((int)fl) & 7;
+      const float m0 = in5 ? mag * (1.f - w1) : 0.f;
+      const float m1 = in5 ? mag * w1 : 0.f;
+      // per channel: the pixel's value (row yi-5: m0 in bin b0, m1 in the
+      // bin after it) and the column sum over rows yo-1 .. yo+2 = yi-8 ..
+      // yi-5 of output row yo = yi-7; then, of the row before it, the row
+      // sum over the columns x-1 .. x+2
+      bool is_b0[8];
+#pragma unroll
+      for (int ch = 0; ch < 8; ++ch) is_b0[ch] = b0 == ch;
+#pragma unroll
+      for (int ch = 0; ch < 8; ++ch) {
+        const float v = is_b0[ch] ? m0 : (is_b0[(ch + 7) & 7] ? m1 : 0.f);
+        const float cs = ((vw[(PH + 1) & 3][ch] + vw[(PH + 2) & 3][ch])
+                          + vw[(PH + 3) & 3][ch]) + v;
+        wr[(L_CS + ch) * LINE] = cs;
+        const float* ca = rd + (L_CS + ch) * LINE;
+        box[ch] = ((ca[-1] + pcs[ch]) + ca[1]) + ca[2];
+        vw[PH][ch] = v;
+        pcs[ch] = cs;
+      }
+      bh[PH] = s;
+      pbv = bv;
+#pragma unroll
+      for (int u = 0; u < 3; ++u) brow[P2][u] = bc[u];
+    }
+
+    if (emit) {
+      if constexpr (HARRIS) {
+        out_r[out_off] = res_c;
+        out_n[out_off] = res_n;
+      }
+      if constexpr (ORIENT) {
+#pragma unroll
+        for (int ch = 0; ch < 8; ++ch) out_m[ch * plane + out_off] = box[ch];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 3; ++u) irow[P2][u] = ic[u];
+    prev = cur;
+    out_off += W;
+  };
+  using std::integral_constant;
+
+  // four iterations a turn; one barrier an iteration: it makes this
+  // iteration's lines readable and frees the other buffer's for the next.
+  // Iterations past the chunk's last row store nothing. A warp outside
+  // the image keeps the barriers' count and does nothing else.
+  const int turns = (nrows + LAG + 3) / 4;
+  if (active) {
+    for (int t = 0; t < 4 * turns; t += 4) {
+      step(integral_constant<int, 0>{}, t);
+      __syncthreads();  // lines of iteration t written
+      step(integral_constant<int, 1>{}, t + 1);
+      __syncthreads();  // of t + 1
+      step(integral_constant<int, 2>{}, t + 2);
+      __syncthreads();  // of t + 2
+      step(integral_constant<int, 3>{}, t + 3);
+      __syncthreads();  // of t + 3
+    }
+  } else {
+    for (int t = 0; t < 4 * turns; ++t) __syncthreads();  // idle warp
   }
-  __syncthreads();
-
-  if constexpr (HARRIS) harris_phase(buf, s_img, resp, nms, f, y0, x0, H, W,
-                                     k, taps);
-  if constexpr (HARRIS && ORIENT)
-    __syncthreads();  // the orientation phase reuses the Harris regions
-  if constexpr (ORIENT) orient_phase(buf, s_img, maps, f, y0, x0, H, W, taps);
 }
 
 Taps make_taps(const float* taps_h, const float* taps_o) {
@@ -283,19 +346,54 @@ template <bool HARRIS, bool ORIENT>
 int launch(const float* img, float* resp, float* nms, float* maps, int F,
            int H, int W, float k, const float* taps_h, const float* taps_o,
            int device, void* stream) {
-  if (F <= 0 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  if (F <= 0 || F > 65535 || H <= 0 || W <= 0 ||
+      (8 * (size_t)H + 2 * LAG) * W > (size_t)INT_MAX)  // offsets: int
+    return (int)cudaErrorInvalidValue;
   const slam::DeviceScope scope(device);
   if (scope.error() != cudaSuccess) return (int)scope.error();
-  dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, F);
-  maps_kernel<HARRIS, ORIENT><<<grid, NT, 0, (cudaStream_t)stream>>>(
-      img, resp, nms, maps, H, W, k, make_taps(taps_h, taps_o));
+  // two buffers of the lines the variant exchanges
+  constexpr size_t smem = (size_t)2 * (1 + (HARRIS ? 3 : 0)
+      + (ORIENT ? 9 : 0)) * LINE * sizeof(float);
+  // the blocks the card runs at once, asked once per device
+  static int slots[64] = {};
+  int& at_once = slots[device & 63];
+  if (at_once == 0) {
+    int sms = 0, per_sm = 0;
+    cudaError_t err = cudaDeviceGetAttribute(
+        &sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, maps_kernel<HARRIS, ORIENT>, NT, smem);
+    if (err != cudaSuccess) return (int)err;
+    at_once = max(1, sms * per_sm);
+  }
+  // columns in blocks of equal width, at most SPAN each
+  const int nblocks = (W + SPAN - 1) / SPAN;
+  const int pitch = (W + nblocks - 1) / nblocks;
+  // rows in chunks of equal height, at least MIN_ROWS each: the count that
+  // makes waves x iterations least
+  int nchunks = 1;
+  long long least = 0;
+  for (int n = 1; n <= (H + MIN_ROWS - 1) / MIN_ROWS; ++n) {
+    const long long blocks = (long long)F * nblocks * n;
+    const long long waves = (blocks + at_once - 1) / at_once;
+    const long long cost = waves * ((H + n - 1) / n + LAG);
+    if (n == 1 || cost < least) {
+      least = cost;
+      nchunks = n;
+    }
+  }
+  const int rows = (H + nchunks - 1) / nchunks;
+  dim3 grid(nblocks, (H + rows - 1) / rows, F);
+  maps_kernel<HARRIS, ORIENT><<<grid, NT, smem, (cudaStream_t)stream>>>(
+      img, resp, nms, maps, H, W, rows, pitch, k, make_taps(taps_h, taps_o));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Every tensor is float32,
-// contiguous, on device `device`: img (F, H, W) in; resp, nms
+// contiguous, on device `device`: img (F, H, W) in, F <= 65535; resp, nms
 // (F, H, W) and maps (F, 8, H, W) out. taps_h / taps_o: 5 host floats
 // each (the Gaussian taps of the structure tensor and of the orientation
 // blur). Each launches on `stream` and returns the launch's cudaError_t

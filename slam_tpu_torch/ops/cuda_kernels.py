@@ -36,6 +36,7 @@ versions, so a run can show which path it took.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -62,7 +63,9 @@ LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 _lib = None
 build_log = ""
-cholesky_max_n = 0  # B6's largest N, read from the library when it loads
+# read from the library when it loads: B6's largest N, B5's most steps
+cholesky_max_n = 0
+akaze_max_steps = 0
 
 
 def reset_counters() -> None:
@@ -110,7 +113,7 @@ def _run_all(cmds) -> str:
 
 def build() -> ctypes.CDLL:
     """Compile (once per source content) and load the kernel library."""
-    global _lib, build_log, cholesky_max_n
+    global _lib, build_log, cholesky_max_n, akaze_max_steps
     if _lib is not None:
         return _lib
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -140,16 +143,19 @@ def build() -> ctypes.CDLL:
     lib.slam_orientation_maps.argtypes = [p, p, i, i, i, p, i, p]
     lib.slam_akaze_octave.argtypes = [p, p, p, p, p, i, i, i, i, f, f, i, p]
     lib.slam_akaze_max_steps.argtypes = []
+    lib.slam_akaze_static_path.argtypes = [i]
     lib.slam_cholesky_solve.argtypes = [p, p, p, i, i, i, p]
     lib.slam_cholesky_max_n.argtypes = []
     lib.slam_mutual_nearest.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, f,
                                         f, p, p, p, p, p, i, p]
     for fn in (lib.slam_detect_maps, lib.slam_harris_response,
                lib.slam_orientation_maps, lib.slam_akaze_octave,
-               lib.slam_akaze_max_steps, lib.slam_cholesky_solve,
+               lib.slam_akaze_max_steps, lib.slam_akaze_static_path,
+               lib.slam_cholesky_solve,
                lib.slam_cholesky_max_n, lib.slam_mutual_nearest):
         fn.restype = i
     cholesky_max_n = lib.slam_cholesky_max_n()
+    akaze_max_steps = lib.slam_akaze_max_steps()
     _lib = lib
     return lib
 
@@ -192,9 +198,11 @@ def _check_images(imgs: torch.Tensor, name: str) -> bool:
     return True
 
 
+@functools.lru_cache(maxsize=None)
 def _taps(sigma: float):
     """Host-computed Gaussian taps (r 2) as a C float[5] pointer (which
-    keeps its array alive): the plain versions blur with the same values."""
+    keeps its array alive): the plain versions blur with the same values.
+    Built once per sigma."""
     taps = (ctypes.c_float * 5)(*features.gaussian_kernel1d(sigma, 2).tolist())
     return ctypes.cast(taps, ctypes.c_void_p)
 
@@ -295,8 +303,11 @@ def akaze_octave(imgs: torch.Tensor, k: torch.Tensor, steps: int = 6,
     contrasts ``k`` (on the images' device) -> the diffused L, the
     scale-normalized Hessian response and its NMS map, each (F, H, W)
     float32 (pallas_kernels.akaze_octave_batch, with features.nms's -inf
-    outside the image). Raises ValueError for more steps than one block's
-    shared memory holds (``slam_akaze_max_steps``, 33 on an H100)."""
+    outside the image). ``steps == 6`` takes the kernel's compile-time
+    instantiation, any other count its run-time path. Raises ValueError
+    for more steps than one block's shared memory holds
+    (``akaze_max_steps``, read from the library). Besides the launch it
+    makes no ctypes call."""
     on_card = _check_images(imgs, "akaze_octave")
     _require(k.shape == imgs.shape[:1] and k.dtype == torch.float32
              and k.device == imgs.device,
@@ -307,9 +318,8 @@ def akaze_octave(imgs: torch.Tensor, k: torch.Tensor, steps: int = 6,
         return akaze_octave_plain(imgs, k, steps, tau, sigma)
     F, H, W = imgs.shape
     lib = build()
-    max_steps = lib.slam_akaze_max_steps()
-    _require(steps <= max_steps, "akaze_octave: steps={} above the {} one "
-             "block's shared memory holds", steps, max_steps)
+    _require(steps <= akaze_max_steps, "akaze_octave: steps={} above the {} "
+             "one block's shared memory holds", steps, akaze_max_steps)
     k = k.contiguous()
     L = torch.empty_like(imgs)
     resp = torch.empty_like(imgs)

@@ -133,6 +133,160 @@ def test_b4_plain_matches_pallas_and_jnp(frames):
     assert not ((np.isfinite(n_t) != np.isfinite(n_j)) & ~tie).any()
 
 
+# ---------------------------------------------------------------------------
+# B5's schedule (csrc/akaze_octave.cu), written out in torch
+# ---------------------------------------------------------------------------
+
+def b5_schedule(imgs, k, steps, tau=0.2, sigma=1.6, TW=72, TH=64, NW=12):
+    """B5 over (F, H, W) images in the kernel's order. Per TW x TH output
+    tile: the halo'd region (2 steps + 3 behind, steps + 3 ahead) staged at
+    ((y0 - back + i) mod H, (x0 - back + j) mod W); two buffers, A before a
+    step and B after it (B starts as NaN: what a step does not write must
+    never be read). Step n updates rows and columns [2n, R - 1 - n] in one
+    fused pass, split as the kernel splits it over NW warps: column groups
+    of 31 updated columns with a flux-only lane on their left (the flux on
+    the left comes from the lane beside), row segments whose first row's
+    upper flux is computed again; g = 1 / (1 + (hx^2 + hy^2) q) on the
+    doubled gradients hx, hy with qk = 1 / (4 k^2), one reciprocal, the
+    halves folded into qk and tau (exact). Then the Hessian response on
+    the region (-inf outside the image) and the separable 5x5 NMS (row
+    maxima, then their column maximum), each by column groups of 32 and
+    row segments. Returns (L, resp, nms)."""
+    F, H, W = imgs.shape
+    RW, RH, back = TW + 3 * steps + 6, TH + 3 * steps + 6, 2 * steps + 3
+    SW, SH = TW + 4, TH + 4
+    qk = (0.25 / (k * k))[:, None, None]
+    half_tau = 0.5 * tau
+    lane = torch.arange(32)
+    inf = float("inf")
+    nan = float("nan")
+    out = [torch.full((F, H, W), nan) for _ in range(3)]
+    for y0 in range(0, H, TH):
+        for x0 in range(0, W, TW):
+            yy = (y0 - back + torch.arange(RH)) % H
+            xx = (x0 - back + torch.arange(RW)) % W
+            A = imgs[:, yy][:, :, xx].clone()
+            B = torch.full_like(A, nan)
+            for n in range(1, steps + 1):
+                lo, wn, hn = 2 * n, RW - 3 * n, RH - 3 * n
+                ncg = (wn + 30) // 31
+                nseg = NW // ncg
+                assert nseg >= 1
+                seg_rows = -(-hn // nseg)
+                for warp in range(NW):
+                    cg, seg = warp % ncg, warp // ncg
+                    i0 = lo + seg * seg_rows
+                    i1 = min(i0 + seg_rows, lo + hn)
+                    if seg >= nseg or i1 <= i0:
+                        continue
+                    j = lo - 1 + 31 * cg + lane
+                    stores = (lane > 0) & (j < lo + wn)
+                    jc = torch.clamp(j, max=RW - 2)
+                    i = torch.arange(i0 - 1, i1)
+                    c = A[:, i][:, :, jc]
+                    hx = A[:, i][:, :, jc + 1] - A[:, i][:, :, jc - 1]
+                    hy = A[:, i + 1][:, :, jc] - A[:, i - 1][:, :, jc]
+                    g = 1.0 / (1.0 + (hx * hx + hy * hy) * qk)
+                    fx, fy = g * hx, g * hy
+                    fx_left = torch.cat([fx[..., :1], fx[..., :-1]], -1)
+                    div = (fx - fx_left)[:, 1:] + (fy[:, 1:] - fy[:, :-1])
+                    new = c[:, 1:] + half_tau * div
+                    B[:, i0:i1, j[stores]] = new[:, :, stores]
+                A, B = B, A
+            # Hessian response of region rows / columns back - 2 + (p, q)
+            s_r = torch.full((F, SH, SW), nan)
+            ncg = (SW + 31) // 32
+            nseg = NW // ncg
+            seg_rows = -(-SH // nseg)
+            for warp in range(ncg * nseg):
+                q = 32 * (warp % ncg) + lane
+                q = q[q < SW]
+                p = torch.arange((warp // ncg) * seg_rows,
+                                 min((warp // ncg + 1) * seg_rows, SH))
+                if not len(p) or not len(q):
+                    continue
+                def at(dp, dq):
+                    return A[:, back - 2 + p + dp][:, :, back - 2 + q + dq]
+                lxx = (at(0, 1) - 2.0 * at(0, 0)) + at(0, -1)
+                lyy = (at(1, 0) - 2.0 * at(0, 0)) + at(-1, 0)
+                lxy = 0.25 * (((at(1, 1) - at(1, -1)) - at(-1, 1))
+                              + at(-1, -1))
+                y, x = y0 - 2 + p, x0 - 2 + q
+                inside = (((y >= 0) & (y < H))[:, None]
+                          & ((x >= 0) & (x < W))[None, :])
+                r = (sigma ** 4) * (lxx * lyy - lxy * lxy)
+                s_r[:, p[:, None], q[None, :]] = torch.where(inside, r, -inf)
+            # outputs: row maxima of 5, then their maximum over 5 rows
+            ncg = (TW + 31) // 32
+            nseg = NW // ncg
+            seg_rows = -(-TH // nseg)
+            for warp in range(ncg * nseg):
+                b = 32 * (warp % ncg) + lane
+                b = b[(b < TW) & (x0 + b < W)]
+                a0 = (warp // ncg) * seg_rows
+                a = torch.arange(a0, max(a0, min(a0 + seg_rows, TH, H - y0)))
+                if not len(a) or not len(b):
+                    continue
+                rows = torch.arange(a0, int(a[-1]) + 5)
+                row_max = torch.stack(
+                    [s_r[:, rows][:, :, b + d] for d in range(5)]).amax(0)
+                mm = torch.stack([row_max[:, u:u + len(a)]
+                                  for u in range(5)]).amax(0)
+                c = s_r[:, a + 2][:, :, b + 2]
+                ya, xb = (y0 + a)[:, None], (x0 + b)[None, :]
+                out[0][:, ya, xb] = A[:, back + a][:, :, back + b]
+                out[1][:, ya, xb] = c
+                out[2][:, ya, xb] = torch.where(c >= mm, c, -inf)
+    return out
+
+
+def check_b5_outputs(got, want, band=None):
+    """L within 2e-6 of max |L| and resp within 2e-5 of max |resp| (the
+    steps round in another order, g by one reciprocal instead of two
+    divisions, and the second differences of L cancel up to ~10x of L's
+    error); the NMS pattern equal away from near-ties; kept values are the
+    response. ``band`` restricts the NMS comparison."""
+    (L_g, r_g, n_g), (L_w, r_w, n_w) = (
+        [np.asarray(v) for v in vs] for vs in (got, want))
+    assert np.isfinite(L_g).all() and np.isfinite(r_g).all()
+    close(L_g, L_w, 2e-6 * np.abs(L_w).max())
+    close(r_g, r_w, 2e-5 * np.abs(r_w).max())
+    mism = (np.isfinite(n_g) != np.isfinite(n_w)) & ~near_tie(r_w)
+    assert not (mism[band] if band else mism).any()
+    kept = np.isfinite(n_g)
+    np.testing.assert_array_equal(n_g[kept], r_g[kept])
+
+
+def test_b5_schedule_matches_pallas():
+    """The kernel's schedule against the Pallas kernel in interpret mode
+    at 6 steps, over the full image (both wrap at the edge); NMS outside
+    the Pallas kernel's 2-px band, where it wraps instead of reading -inf."""
+    imgs = noise_images(5, 2, 130, 200)
+    k = jax.vmap(jakaze._contrast_k)(jnp.asarray(imgs))
+    want = pk.akaze_octave_batch(jnp.asarray(imgs), k, steps=6, sigma=1.6,
+                                 interpret=True)
+    got = b5_schedule(t(imgs), t(k), 6)
+    check_b5_outputs(got, want,
+                     band=(slice(None), slice(3, -3), slice(3, -3)))
+
+
+@pytest.mark.parametrize("tile", [(72, 64, 12), (40, 24, 8), (32, 32, 8)])
+@pytest.mark.parametrize("steps", [0, 1, 6, 9])
+@pytest.mark.parametrize("shape", [(2, 130, 200), (1, 63, 71), (1, 64, 72),
+                                   (1, 65, 73), (2, 47, 156), (1, 13, 9)])
+def test_b5_schedule_matches_plain(shape, steps, tile):
+    """The kernel's schedule against the plain version over the whole
+    image: sizes one less, equal and one more than the 72 x 64 tile, KITTI's
+    octave 3 and an image smaller than the halo (it wraps more than once),
+    at the step counts of the compile-time path (6) and of the run-time
+    one, for three tile shapes."""
+    x = t(noise_images(16, *shape))
+    k = torch.linspace(0.05, 0.2, shape[0])
+    got = b5_schedule(x, k, steps, sigma=3.2, TW=tile[0], TH=tile[1],
+                      NW=tile[2])
+    check_b5_outputs(got, ck.akaze_octave_plain(x, k, steps, sigma=3.2))
+
+
 def test_b5_rejects_bad_contrast():
     imgs = t(noise_images(6, 2, 20, 30))
     for k in (torch.ones(3), torch.ones(2, dtype=torch.float64)):

@@ -324,6 +324,255 @@ def test_b2_schedule_ragged_matches_plain(sizes, window, tiles):
 
 
 # ---------------------------------------------------------------------------
+# B1's marching schedule (csrc/detect_maps.cu), written out in torch
+# ---------------------------------------------------------------------------
+
+def sobel(a, b, c):
+    """The kernel's Sobel taps / 8 on rows a, b, c, each [x - 1, x, x + 1]."""
+    gx = ((a[2] - a[0]) + 2.0 * (b[2] - b[0]) + (c[2] - c[0])) * 0.125
+    gy = ((c[0] - a[0]) + 2.0 * (c[1] - a[1]) + (c[2] - a[2])) * 0.125
+    return gx, gy
+
+
+def blur5(taps, kept, v):
+    s = torch.zeros_like(v)
+    for u in range(4):
+        s = s + taps[u] * kept[u]
+    return s + taps[4] * v
+
+
+def atan2_poly(y, x):
+    """The kernel's atan2: the octant's ratio, the odd polynomial of
+    Cephes' atanf on [0, tan(pi / 8)], (t - 1) / (t + 1) above that."""
+    ax, ay = x.abs(), y.abs()
+    t = torch.minimum(ax, ay) / torch.clamp(torch.maximum(ax, ay), min=1e-37)
+    big = t > 0.41421356237
+    u = torch.where(big, (t - 1.0) / (t + 1.0), t)
+    z = u * u
+    a = (((8.05374449538e-2 * z - 1.38776856032e-1) * z
+          + 1.99777106478e-1) * z - 3.33329491539e-1) * z * u + u
+    a = torch.where(big, a + np.float32(np.pi / 4), a)
+    a = torch.where(ay > ax, np.float32(np.pi / 2) - a, a)
+    a = torch.where(x < 0, np.float32(np.pi) - a, a)
+    return torch.where(y < 0, -a, a)
+
+
+def max5(vals):
+    return torch.stack(list(vals)).max(dim=0).values
+
+
+def b1_schedule(imgs, k=0.05, chunk_rows=96, warps=8):
+    """B1 over (F, H, W) images in the kernel's order. A block of
+    ``32 * warps`` threads owns as many image columns side by side (a
+    5-column halo on each side; the blocks' stored columns are of equal
+    width ``pitch``) and a chunk of at most ``chunk_rows`` rows, and takes
+    in one image row per iteration (output row = input row - 13 + 5). A
+    thread keeps its column's vertical windows: the separable blurs' last 4
+    rows, the row maxima of the separable 5x5 NMS, the last 3 rows'
+    8-channel vectors of the box sums (a pixel's vector built once; column
+    sums, then row sums, ((v0 + v1) + v2) + v3). What a stage reads of its
+    neighbours' columns it reads from the line the stage before wrote an
+    iteration earlier: every stage lags the one before it by one more row,
+    the lines are kept twice, and one barrier an iteration does. Lines
+    start as zeros and have 2 cells of padding that stay zero; a warp whose
+    columns all lie past the halo writes none. Every block marches at once
+    here, as tensors of shape (F, chunks, blocks, threads). Returns (resp,
+    nms, maps) and fails unless every value was stored once."""
+    from slam_tpu_torch.ops import features
+
+    F, H, W = imgs.shape
+    HALO, PAD, LAG = 5, 2, 13
+    NT = 32 * warps
+    SPAN = NT - 2 * HALO
+    nchunks = -(-H // chunk_rows)
+    rows = -(-H // nchunks)
+    nblocks = -(-W // SPAN)
+    pitch = -(-W // nblocks)
+    th = features.gaussian_kernel1d(1.5, 2)
+    to = features.gaussian_kernel1d(1.0, 2)
+    q = torch.arange(NT)
+    x0 = torch.arange(nblocks) * pitch
+    x = x0[:, None] - HALO + q                                 # (B, NT)
+    q0 = q & ~31
+    active = (q0 < pitch + 2 * HALO) & (x0[:, None] - HALO + q0 < W + HALO)
+    stores = (q >= HALO) & (q < HALO + pitch) & (x < W)
+    ys = torch.arange(nchunks) * rows                          # (C,)
+    nrows = torch.clamp(ys + rows, max=H) - ys
+    col_in = ((x >= 0) & (x < W))[None, None]
+    inf = float("inf")
+
+    def row_in(y):
+        return ((y >= 0) & (y < H))[None, :, None, None] & col_in
+
+    def load(y):
+        v = imgs[:, y.clamp(0, H - 1)][:, :, x.clamp(0, W - 1)]
+        return torch.where(row_in(y), v, 0.0)
+
+    zero = torch.zeros((F, nchunks, nblocks, NT))
+    names = ["img", "gx", "gy", "r", "bv"] + [f"cs{c}" for c in range(8)]
+    lines = {n: [torch.zeros((F, nchunks, nblocks, NT + 2 * PAD))
+                 for _ in range(2)] for n in names}
+
+    def write(name, buf, v):
+        cells = lines[name][buf][..., PAD:PAD + NT]
+        cells[:] = torch.where(active, v, cells)
+
+    prev, pgx, pgy, pbv = zero, zero, zero, zero
+    ia, ib = [zero] * 3, [zero] * 3
+    hxx, hyy, hxy = [zero] * 4, [zero] * 4, [zero] * 4
+    rv, rm, bh = [zero] * 3, [zero] * 4, [zero] * 4
+    ba, bb = [zero] * 3, [zero] * 3
+    vw = [[zero] * 8 for _ in range(3)]
+    pcs = [zero] * 8
+    out = [torch.full((F, n, H, W), float("nan")) for n in (1, 1, 8)]
+    stored = [torch.zeros((n, H, W), dtype=torch.int64) for n in (1, 1, 8)]
+
+    def emit(j, planes):
+        for c in range(nchunks):
+            if not 0 <= j < int(nrows[c]):
+                continue
+            for b in range(nblocks):
+                cols = x[b][stores[b]]
+                for p, v in enumerate(planes):
+                    tsr, pl = (p, 0) if p < 2 else (2, p - 2)
+                    out[tsr][:, pl, int(ys[c]) + j, cols] = \
+                        v[:, c, b][:, stores[b]]
+                    stored[tsr][pl, int(ys[c]) + j, cols] += 1
+
+    for step in range(rows + LAG):
+        w, r_ = step & 1, (step & 1) ^ 1   # this iteration's lines, the last's
+
+        def read(name, d):
+            return lines[name][r_][..., PAD + d:PAD + d + NT].clone()
+
+        yi = ys - HALO + step
+        cur = load(yi)
+        write("img", w, cur)
+        ic = [read("img", -1), prev, read("img", 1)]           # row yi-1
+        planes = []
+
+        # Harris phase
+        gx, gy = sobel(ia, ib, ic)                             # row yi-2
+        in2 = row_in(yi - 2)
+        gx, gy = torch.where(in2, gx, 0.0), torch.where(in2, gy, 0.0)
+        write("gx", w, gx)
+        write("gy", w, gy)
+        a5 = [read("gx", -2), read("gx", -1), pgx, read("gx", 1),
+              read("gx", 2)]                                   # row yi-3
+        b5 = [read("gy", -2), read("gy", -1), pgy, read("gy", 1),
+              read("gy", 2)]
+        sxx, syy, sxy = zero, zero, zero
+        for u in range(5):
+            sxx = sxx + th[u] * (a5[u] * a5[u])
+            syy = syy + th[u] * (b5[u] * b5[u])
+            sxy = sxy + th[u] * (a5[u] * b5[u])
+        cxx, cyy, cxy = blur5(th, hxx, sxx), blur5(th, hyy, syy), \
+            blur5(th, hxy, sxy)                                # row yi-5
+        det, tr = cxx * cyy - cxy * cxy, cxx + cyy
+        r = torch.where(row_in(yi - 5), det - k * tr * tr, -inf)
+        write("r", w, r)
+        m = max5([read("r", -2), read("r", -1), read("r", 1), read("r", 2),
+                  rv[2]])                                      # row yi-6
+        mm = max5(rm + [m])
+        c = rv[0]                                              # row yi-8
+        planes += [c, torch.where(c >= mm, c, -inf)]
+        pgx, pgy = gx, gy
+        hxx, hyy, hxy = hxx[1:] + [sxx], hyy[1:] + [syy], hxy[1:] + [sxy]
+        rv, rm = rv[1:] + [r], rm[1:] + [m]
+
+        # orientation phase
+        i5 = [read("img", -2), ic[0], prev, ic[2], read("img", 2)]
+        s = zero
+        for u in range(5):
+            s = s + to[u] * i5[u]                              # row yi-1
+        bv = torch.where(row_in(yi - 3), blur5(to, bh, s), 0.0)
+        write("bv", w, bv)
+        bc = [read("bv", -1), pbv, read("bv", 1)]              # row yi-4
+        gx, gy = sobel(ba, bb, bc)                             # row yi-5
+        sq = gx * gx + gy * gy + 1e-12
+        mag = sq * torch.rsqrt(sq)
+        bin_f = (atan2_poly(gy, gx) + np.pi) * np.float32(8.0 / (2.0 * np.pi))
+        fl = torch.floor(bin_f)
+        w1 = bin_f - fl
+        in5 = row_in(yi - 5)
+        b0 = fl.long() & 7
+        m0 = torch.where(in5, mag * (1.0 - w1), 0.0)
+        m1 = torch.where(in5, mag * w1, 0.0)
+        new, sums = [], []
+        for ch in range(8):
+            v = torch.where(b0 == ch, m0,
+                            torch.where(b0 == (ch + 7) % 8, m1, 0.0))
+            cs = ((vw[0][ch] + vw[1][ch]) + vw[2][ch]) + v     # out row yi-7
+            write(f"cs{ch}", w, cs)
+            planes.append(((read(f"cs{ch}", -1) + pcs[ch])
+                           + read(f"cs{ch}", 1)) + read(f"cs{ch}", 2))
+            new.append(v)
+            sums.append(cs)
+        vw, pcs = vw[1:] + [new], sums
+        bh, pbv = bh[1:] + [s], bv
+        ba, bb = bb, bc
+        ia, ib = ib, ic
+        prev = cur
+        emit(step - LAG, planes)
+    assert all((n == 1).all() for n in stored)
+    return out[0][:, 0], out[1][:, 0], out[2]
+
+
+def check_b1_outputs(got, want, inner=None):
+    """B1's tolerances (chip_smoke.check_b1): resp within 1e-5 of max
+    |resp| (summation order), at most 0.1% of map values beyond 1e-5 of
+    max |maps| (pixels on an 8-bin boundary, where gradients that differ
+    in their last bit fall into different bins), the NMS pattern equal
+    away from near-ties. ``inner`` restricts the comparison to an index
+    of the trailing (H, W) axes."""
+    (r_g, n_g, m_g), (r_w, n_w, m_w) = got, want
+    tie = near_tie(r_w)
+    pick = (Ellipsis,) + (inner or (slice(None), slice(None)))
+    r_g, n_g, m_g, r_w, n_w, m_w, tie = (
+        np.asarray(v)[pick] for v in (r_g, n_g, m_g, r_w, n_w, m_w, tie))
+    assert np.isfinite(r_g).all() and np.isfinite(m_g).all()
+    np.testing.assert_allclose(r_g, r_w, rtol=0,
+                               atol=1e-5 * np.abs(r_w).max())
+    assert (np.abs(m_g - m_w) > 1e-5 * np.abs(m_w).max()).mean() <= 1e-3
+    assert not ((np.isfinite(n_g) != np.isfinite(n_w)) & ~tie).any()
+    kept = np.isfinite(n_g)
+    np.testing.assert_array_equal(n_g[kept], r_g[kept])
+
+
+def test_b1_schedule_matches_pallas_interior():
+    """The marching schedule against the Pallas kernel in interpret mode,
+    on the interior >= 8 px from the edge (its zero canvas differs from
+    the per-stage zero padding nearer the edge), with B1's tolerances."""
+    import jax.numpy as jnp
+    from slam_tpu.ops import pallas_kernels as pk
+
+    imgs = images(0, 2, 70, 120)
+    want = [np.asarray(v) for v in pk.detect_maps_batch(jnp.asarray(imgs),
+                                                        interpret=True)]
+    got = b1_schedule(t(imgs), chunk_rows=32, warps=2)
+    check_b1_outputs(got, want, inner=(slice(8, -8), slice(8, -8)))
+
+
+@pytest.mark.parametrize("shape, chunk_rows, warps", [
+    ((2, 70, 120), 96, 8), ((1, 37, 41), 16, 8), ((1, 95, 53), 96, 2),
+    ((1, 96, 54), 96, 2), ((1, 97, 55), 96, 2), ((1, 47, 107), 24, 2),
+    ((1, 48, 108), 24, 2), ((1, 49, 109), 24, 2), ((1, 12, 245), 96, 8),
+    ((1, 12, 246), 96, 8), ((1, 12, 247), 96, 8), ((1, 9, 493), 96, 8),
+    ((1, 20, 130), 96, 4), ((2, 9, 7), 96, 8), ((1, 3, 100), 2, 4)])
+def test_b1_schedule_matches_plain(shape, chunk_rows, warps):
+    """The marching schedule against the plain version over the whole
+    image (both read zero outside per stage and -inf for NMS), with B1's
+    tolerances: widths one less, equal and one more than one and two
+    blocks' most columns (246 and 492 at 8 warps, 54 and 108 at 2),
+    heights around one and two chunks of rows, blocks whose last warps lie
+    outside the image, an image narrower than a warp and one smaller than
+    the halo, chunks shorter than the stages' lag."""
+    x = t(images(15, *shape))
+    got = b1_schedule(x, chunk_rows=chunk_rows, warps=warps)
+    check_b1_outputs(got, ck.detect_maps_plain(x))
+
+
+# ---------------------------------------------------------------------------
 # wrappers on the CPU: dispatch, counters, input checks
 # ---------------------------------------------------------------------------
 
@@ -412,9 +661,11 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_probe_script_finds_its_cut_points():
-    """scripts/probe_kernels_cuda.py measures copies of B6's and B2's
+    """scripts/probe_kernels_cuda.py measures copies of the kernels'
     sources, rewritten at fixed lines: every line it rewrites is still
-    there, and without a card it exits 1 before building anything."""
+    there (B6's barriers, B2's and B1's cuts, a mark after each barrier of
+    B5 and of B1), and without a card it exits 1
+    before building anything."""
     import importlib.util
     from pathlib import Path
 
@@ -428,6 +679,19 @@ def test_probe_script_finds_its_cut_points():
     for cuts in probe.B2_CUTS.values():
         src = probe.b2_variant(cuts)
         assert all(new in src for _, new in cuts)
+    for cuts in probe.B1_CUTS.values():
+        src = probe.cut_variant("detect_maps.cu", cuts)
+        assert all(new in src for _, new in cuts)
+    want = {"detect_maps.cu": ["lines zeroed", "lines of iteration t written",
+                               "of t + 1", "of t + 2", "of t + 3", "end"],
+            "akaze_octave.cu": ["load", "diffusion steps", "Hessian response",
+                                "end"]}
+    for name, phases in want.items():
+        src, labels = probe.with_barrier_marks(
+            (probe.CSRC / name).read_text())
+        assert [l.split(" ", 1)[-1] for l in labels] == phases
+        assert src.count("PROF_MARK(") == 1 + len(phases)  # and the macro
+        assert src.count("PROF_START;") == 1
     if not torch.cuda.is_available():
         assert probe.main([]) == 1
 
@@ -443,8 +707,16 @@ def cuda():
     return torch.device("cuda")
 
 
+# widths around one and two of B1's blocks of at most 246 columns, heights
+# around one and two of its chunks of at least 32 rows, an image narrower
+# than a warp, and one frame at the frontend's size
+MAPS_SHAPES = [(2, 100, 333), (3, 64, 64), (1, 37, 41), (1, 31, 245),
+               (1, 32, 246), (1, 33, 247), (2, 63, 491), (1, 64, 492),
+               (1, 65, 493), (1, 40, 9), (1, 376, 1241)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 100, 333), (3, 64, 64), (1, 37, 41)])
+@pytest.mark.parametrize("shape", MAPS_SHAPES)
 def test_cuda_detect_maps_matches_plain(cuda, shape):
     """Over the whole image (the kernel follows the plain version's edge
     semantics): resp within 1e-5 of max |resp|, maps within 1e-5 of max
@@ -492,7 +764,7 @@ def test_cuda_mutual_nearest_matches_plain(cuda, window, sizes):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 100, 333), (3, 64, 64), (1, 37, 41)])
+@pytest.mark.parametrize("shape", MAPS_SHAPES)
 def test_cuda_harris_and_orientation_match_plain(cuda, shape):
     """B4 and B3, B1's phases alone, with B1's tolerances over the whole
     image; each launches once."""
@@ -514,11 +786,18 @@ def test_cuda_harris_and_orientation_match_plain(cuda, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("steps", [0, 1, 6, 9])
-@pytest.mark.parametrize("shape", [(2, 100, 333), (2, 47, 156), (1, 13, 9)])
+@pytest.mark.parametrize("shape", [(2, 100, 333), (2, 47, 156), (1, 13, 9),
+                                   (1, 63, 71), (1, 64, 72), (1, 65, 73),
+                                   (2, 127, 143), (1, 128, 144),
+                                   (1, 129, 145), (1, 30, 20),
+                                   (1, 376, 1241)])
 def test_cuda_akaze_octave_matches_plain(cuda, shape, steps):
     """B5 over the whole image, wrap included (images smaller than the
     halo'd tile wrap more than once): L within 1e-5 of max |L|, resp
-    within 1e-4 of max |resp|, the NMS pattern equal away from near-ties."""
+    within 1e-4 of max |resp|, the NMS pattern equal away from near-ties.
+    Sizes around one and two of its 72 x 64 tiles, narrower than a tile,
+    and one frame at the frontend's size; 6 steps take the compile-time
+    path, the other counts the run-time one."""
     x = t(images(8, *shape), device=cuda)
     k = torch.linspace(0.05, 0.2, shape[0], device=cuda)
     ck.reset_counters()
@@ -537,7 +816,7 @@ def test_cuda_akaze_octave_rejects_too_many_steps(cuda):
     x = torch.rand((1, 40, 60), device=cuda)
     k = torch.ones(1, device=cuda)
     top = ck.build().slam_akaze_max_steps()
-    assert top >= 6
+    assert top == ck.akaze_max_steps >= 13
     ck.akaze_octave(x, k, top)
     with pytest.raises(ValueError, match="shared memory"):
         ck.akaze_octave(x, k, top + 1)
