@@ -75,7 +75,23 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      final cost of each), and one LM iteration split by phase (block
      build, Schur reduction, solve, back-substitution, cost) from a
      torch.profiler trace: host time, device busy time and the host's
-     blocking calls of each phase;
+     blocking calls of each phase (none allowed in back-substitution on
+     B6: a pageable host copy there made the host wait every iteration);
+  4f. the disk path: the scene written as uint8 PNGs in KITTI's layout
+     (utils.kitti.write_kitti_sequence), then (a) run_pipeline from the
+     path lists with a stage cache, with B1, B2 and B6 launched, no plain
+     version run, >= 1 closure, every ATE under 1 m, and the decoder that
+     ran named (the native one must have built); (b) a second call that
+     loads every stage from the cache (no kernel launched) with the same
+     closures and trajectories; (c) the frontend from the PNGs (chunks of
+     16) stopped after 48 frames and resumed, equal bit for bit to an
+     uninterrupted run, with the resumed chunks' recomputed descriptors
+     equal to the originals; (d) run_frontend (uploads and read-backs
+     overlapped) equal bit for bit to a plain sequential loop over
+     process_chunk written here; (e) optimize_windows on the scene's
+     windows in 4 pipelined slices of 4 against one slice of 16, within
+     the tolerance below; (f) a 16-frame 370x1226 sequence through the
+     (376, 1248) bucket;
   5. with --profile DIR: one more warm run of the main path, and one of
      the AKAZE path, under torch.profiler; wall time, device busy time
      (union of the device events' intervals) and idle share of that one
@@ -96,8 +112,11 @@ import argparse
 import collections
 import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -772,6 +791,265 @@ def drive_path(pipeline, ck, L, R, scene, cfg, required, tag, card,
             "windows": res.bundles.poses.shape[0]}
 
 
+def u8(x: np.ndarray) -> np.ndarray:
+    return np.clip(np.rint(x * 255.0), 0, 255).astype(np.uint8)
+
+
+def kitti_paths(kitti, root, seq, left, right, calib, T_w2c):
+    """A sequence written in KITTI's layout: (left paths, right paths,
+    calibration and poses read back from the files)."""
+    paths = kitti.write_kitti_sequence(root, seq, u8(left), u8(right), calib,
+                                       T_w2c)
+    lp = sorted(str(p) for p in paths.left_dir.glob("*.png"))
+    rp = sorted(str(p) for p in paths.right_dir.glob("*.png"))
+    return lp, rp, kitti.calib_vector(paths), kitti.read_ground_truth(paths)
+
+
+FRONTEND_ARRAYS = ("xy", "valid", "links", "link_valid", "match_prev",
+                   "match_dist", "inlier_prev", "T_rel", "T_w2c",
+                   "num_inliers", "inlier_frac", "pose_ok")
+
+
+def same_frontend(a, b, label: str, frames=None) -> None:
+    """Every per-frame array of two frontend results equal bit for bit,
+    and the descriptors of ``frames`` (all by default)."""
+    for k in FRONTEND_ARRAYS:
+        if not np.array_equal(getattr(a, k), getattr(b, k)):
+            fail(f"{label}: {k} differs")
+    idx = np.arange(len(a.xy)) if frames is None else frames
+    if not torch.equal(a.desc.gather(idx), b.desc.gather(idx)):
+        fail(f"{label}: descriptors differ")
+
+
+# optimize_windows in slices of 4 against one slice of 16: each window's LM
+# is independent of the others in its slice, so they differ as two runs of
+# the same call do, by the order index_add_ sums in: up to ~2e-5 in a pose
+# entry and in a relative cost on the scene's windows (NVIDIA H100 80GB
+# HBM3, 700 W; PERF.md section 6); the limits are ~10x that
+SLICE_TOL = {"poses": 2e-4, "cost": 1e-4}
+
+
+def disk_phase(pipeline, ck, L, R, scene, cfg, batch, card, tmp) -> None:
+    """Phase 4f, the disk path (see the module docstring)."""
+    import dataclasses
+
+    from slam_tpu_torch import runtime
+    from slam_tpu_torch.config import RuntimeConfig
+    from slam_tpu_torch.models import bundle, frontend
+    from slam_tpu_torch.parallel import pipeline as ppipe
+    from slam_tpu_torch.utils import kitti, metrics, synthetic
+
+    t0 = time.perf_counter()
+    lp, rp, calib, T_gt = kitti_paths(kitti, tmp / "kitti", "00", L, R,
+                                      scene.calib, scene.T_w2c)
+    write_s = time.perf_counter() - t0
+    decoder = ppipe.PngFrames(lp, rp, HW).decoder
+    if not runtime.available():
+        fail(f"disk: the native runtime did not build: {runtime.build_error}")
+    n = len(lp)
+    log(f"[disk] wrote {n} stereo pairs {HW} as PNG in {write_s:.2f} s; "
+        f"decoder {decoder} ({card})")
+    # host costs of the disk path, on this machine's CPU: one frame's
+    # decode by the port's decoder and by cv2, and a checkpoint segment of
+    # the 80 frames written plain (as the port does) and compressed
+    import cv2
+    frame = torch.empty(HW, dtype=torch.uint8)
+    dec = {"native": lambda: runtime.load_png_u8_padded(lp[0], HW, out=frame),
+           "cv2": lambda: cv2.imread(lp[0], cv2.IMREAD_GRAYSCALE)}
+    dec_ms = {}
+    for name, fn in dec.items():
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        dec_ms[name] = (time.perf_counter() - t0) / 20 * 1e3
+
+    # (a) run_pipeline from the path lists, cold stage cache
+    cache = tmp / "cache"
+    ck.reset_counters()
+    t0 = time.perf_counter()
+    r1 = pipeline.run_pipeline(lp, rp, calib, cfg, cache_dir=cache,
+                               verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(ck.LAUNCHES), dict(ck.PLAIN_CALLS)
+    if any(launches[k] == 0 for k in ("detect_maps", "mutual_nearest",
+                                      "cholesky_solve")):
+        fail(f"disk (a): a kernel of the path was not launched: {launches}")
+    if any(plain.values()):
+        fail(f"disk (a): a plain version ran: {plain}")
+    report = pipeline.evaluate(r1, T_gt)
+    ates = {k: report[k]["ate_rmse_m"] for k in
+            ("frontend", "bundles_kf", "pose_graph_kf", "pose_graph_lc_kf")
+            if k in report}
+    if report["num_closures"] < 1 or not all(
+            np.isfinite(v) and v < 1.0 for v in ates.values()):
+        fail(f"disk (a): closures {report['num_closures']}, ATE m {ates}")
+    seg = {k: getattr(r1.frontend, k) for k in FRONTEND_ARRAYS}
+    save_s = {}
+    for name, save in (("plain", np.savez),
+                       ("compressed", np.savez_compressed)):
+        t0 = time.perf_counter()
+        save(str(tmp / f"seg_{name}.npz"), **seg)
+        save_s[name] = (time.perf_counter() - t0,
+                        (tmp / f"seg_{name}.npz").stat().st_size / 1e6)
+    log(f"[disk] host: decode of one frame {HW} native {dec_ms['native']:.2f}"
+        f" ms, cv2 {dec_ms['cv2']:.2f} ms (mean of 20); {n} frames' "
+        f"checkpoint arrays written plain in {save_s['plain'][0]:.3f} s "
+        f"({save_s['plain'][1]:.1f} MB), compressed in "
+        f"{save_s['compressed'][0]:.3f} s ({save_s['compressed'][1]:.1f} MB)"
+        f"; {ppipe.default_io_threads()} decode threads of "
+        f"{os.cpu_count()} cores ({card})")
+    t = r1.timings
+    log(f"[disk] (a) run_pipeline from {n} PNG pairs, cold cache: wall "
+        f"{wall:.2f} s, stages " + ", ".join(f"{k} {v:.3f} s"
+                                            for k, v in t.items())
+        + f"; frontend {n / t['frontend']:.1f} frames/s; closures "
+        f"{[(c.frame_i, c.frame_j) for c in r1.closures]}; ATE m "
+        f"{json.dumps(ates)}; launches {launches} ({card})")
+
+    # (b) the same call again: every stage from the cache
+    ck.reset_counters()
+    t0 = time.perf_counter()
+    r2 = pipeline.run_pipeline(lp, rp, calib, cfg, cache_dir=cache,
+                               verbose=False, device="cuda")
+    wall = time.perf_counter() - t0
+    if any(ck.LAUNCHES.values()) or any(ck.PLAIN_CALLS.values()):
+        fail(f"disk (b): work ran on a full cache: {ck.LAUNCHES}")
+    if [(c.frame_i, c.frame_j) for c in r2.closures] != [
+            (c.frame_i, c.frame_j) for c in r1.closures]:
+        fail("disk (b): other closures from the cache")
+    for get in (lambda r: r.T_frontend, lambda r: r.bundles.T_w2c_keyframes,
+                lambda r: r.pose_graph_pre_lc.nodes,
+                lambda r: r.keyframe_trajectory()):
+        if not np.array_equal(get(r1), get(r2)):
+            fail("disk (b): trajectories from the cache differ")
+    log(f"[disk] (b) second call, every stage from the cache: wall "
+        f"{wall:.3f} s, stages " + ", ".join(f"{k} {v:.4f} s"
+                                             for k, v in r2.timings.items())
+        + f"; no kernel launched; same closures and trajectories ({card})")
+
+    # (c) stop after 48 frames, resume, against an uninterrupted run
+    cfg16 = dataclasses.replace(cfg, runtime=RuntimeConfig(chunk_frames=16))
+
+    def from_pngs(m, **kw):
+        return ppipe.run_frontend_pipelined(lp[:m], rp[:m], HW, calib, cfg16,
+                                            device="cuda", **kw)
+
+    full = from_pngs(n)
+    ckpt = str(tmp / "fe_ckpt.npz")
+    from_pngs(48, checkpoint_path=ckpt, checkpoint_every=16)
+    t0 = time.perf_counter()
+    resumed = from_pngs(n, checkpoint_path=ckpt, checkpoint_every=16,
+                        resume=True)
+    resume_s = time.perf_counter() - t0
+    same_frontend(resumed, full, "disk (c) resumed", np.arange(48, n))
+    ck.reset_counters()
+    t0 = time.perf_counter()
+    rec = resumed.desc.gather(np.arange(48))
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t0
+    if not torch.equal(rec, full.desc.gather(np.arange(48))):
+        fail("disk (c): recomputed descriptors differ from the originals")
+    log(f"[disk] (c) frontend from PNGs (chunks of 16) stopped after 48 "
+        f"frames and resumed in {resume_s:.3f} s: every array equal to an "
+        f"uninterrupted run; the 3 resumed chunks' descriptors recomputed "
+        f"from the PNGs in {rec_s:.3f} s ({ck.LAUNCHES['detect_maps']} B1 "
+        f"launches), equal bit for bit ({card})")
+
+    # (d) the overlapped run_frontend against a plain sequential loop
+    chunk = cfg.runtime.chunk_frames
+    calib_t = torch.from_numpy(scene.calib).cuda()
+    carry, T_carry, T_all, parts, descs = None, np.eye(4, dtype=np.float32), \
+        [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ci, s in enumerate(range(0, len(L), chunk)):
+        m = min(chunk, len(L) - s)
+        blk = [np.zeros((chunk,) + HW, np.float32) for _ in range(2)]
+        blk[0][:m], blk[1][:m] = L[s:s + m], R[s:s + m]
+        out, carry = frontend.process_chunk(
+            torch.from_numpy(blk[0]).cuda(), torch.from_numpy(blk[1]).cuda(),
+            carry, calib_t, cfg,
+            generator=frontend.chunk_generator(cfg, ci, "cuda"))
+        descs.append(out.pop("desc")[:m])
+        host = {k: v[:m].cpu().numpy() for k, v in out.items()}
+        T_all.append(host["T_chain"] @ T_carry[None])
+        T_carry = T_all[-1][-1]
+        parts.append(host)
+    seq_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fe = frontend.run_frontend(L, R, scene.calib, cfg, device="cuda")
+    torch.cuda.synchronize()
+    ovl_s = time.perf_counter() - t0
+    T_rel = np.concatenate([p["T_rel"] for p in parts])
+    T_rel[0] = np.eye(4, dtype=np.float32)
+    seq = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    seq.update(T_rel=T_rel, T_w2c=np.concatenate(T_all))
+    for k in FRONTEND_ARRAYS:
+        if not np.array_equal(seq[k], getattr(fe, k)):
+            fail(f"disk (d): run_frontend's {k} differs from the sequential "
+                 f"loop's")
+    if not torch.equal(torch.cat(descs), fe.desc[:]):
+        fail("disk (d): run_frontend's descriptors differ")
+    log(f"[disk] (d) run_frontend, uploads and read-backs overlapped: "
+        f"{ovl_s:.3f} s ({len(L) / ovl_s:.1f} frames/s) against a plain "
+        f"sequential loop's {seq_s:.3f} s ({len(L) / seq_s:.1f} frames/s), "
+        f"every array and descriptor equal bit for bit ({card})")
+
+    # (e) optimize_windows: 4 pipelined slices of 4 against 1 slice of 16
+    runs = {}
+    for tag, db in (("16 a", 16), ("16 b", 16), ("4", 4)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[tag] = bundle.optimize_windows(batch, scene.calib, cfg.bundle,
+                                            device_batch=db, device="cuda")
+        runs[tag + " s"] = time.perf_counter() - t0
+
+    def diff(a, b):
+        return {"poses": float(np.abs(a.poses - b.poses).max()),
+                "cost": float((np.abs(a.cost - b.cost)
+                               / np.maximum(np.abs(b.cost), 1.0)).max())}
+
+    spread, d4 = diff(runs["16 a"], runs["16 b"]), diff(runs["4"],
+                                                        runs["16 a"])
+    if any(not np.isfinite(v) or v > SLICE_TOL[k] for k, v in d4.items()):
+        fail(f"disk (e): device_batch 4 vs 16 {d4} (limits {SLICE_TOL})")
+    log(f"[disk] (e) optimize_windows on the scene's {batch.num_windows} "
+        f"windows: 4 slices of 4 in {runs['4 s']:.3f} s, 1 slice of 16 in "
+        f"{runs['16 a s']:.3f} / {runs['16 b s']:.3f} s; max |pose diff| and "
+        f"relative cost diff 4 vs 16 {json.dumps(d4)}, 16 vs 16 (two runs) "
+        f"{json.dumps(spread)}, limits {json.dumps(SLICE_TOL)} ({card})")
+
+    # (f) a 370 x 1226 sequence (KITTI 04-12) through the shared bucket
+    hw2 = (370, 1226)
+    bucket = kitti.bucket_for([HW, hw2])
+    sc2 = synthetic.make_scene(seed=SEED + 1, num_frames=16,
+                               num_landmarks=4000, trajectory="straight",
+                               hw=hw2)
+    L2, R2 = synthetic.render_sequence(sc2)
+    lp2, rp2, calib2, T_gt2 = kitti_paths(kitti, tmp / "kitti", "04", L2,
+                                          R2, sc2.calib, sc2.T_w2c)
+    ck.reset_counters()
+    r3 = pipeline.run_pipeline(lp2, rp2, calib2, cfg, image_hw=bucket,
+                               run_loop_closure=False, verbose=False,
+                               device="cuda")
+    ate = metrics.trajectory_summary(r3.T_frontend, T_gt2)["ate_rmse_m"]
+    frame0 = torch.zeros(bucket, dtype=torch.uint8)
+    ppipe.PngFrames(lp2, rp2, bucket).decode(lp2[0], frame0)
+    padded = kitti.pad_to_bucket(u8(L2[:1]), bucket)[0]
+    if not (np.isfinite(r3.T_frontend).all() and ate < 1.0
+            and ck.LAUNCHES["detect_maps"] > 0
+            and np.array_equal(frame0.numpy(), padded)):
+        fail(f"disk (f): {hw2} in bucket {bucket}: ATE {ate} m, launches "
+             f"{ck.LAUNCHES}, padded decode equal "
+             f"{np.array_equal(frame0.numpy(), padded)}")
+    log(f"[disk] (f) 16 frames {hw2} through bucket {bucket}: stages "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in r3.timings.items())
+        + f"; frontend ATE {ate:.4f} m; decoded frames equal pad_to_bucket "
+        f"of the written ones ({card})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -805,10 +1083,17 @@ def main(argv=None) -> int:
     log(f"[device] {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
 
+    # the native runtime (g++) builds beside the kernels (nvcc)
+    from slam_tpu_torch import runtime
     t0 = time.perf_counter()
+    native_build = threading.Thread(target=runtime.available)
+    native_build.start()
     ck.build()
     build_s = time.perf_counter() - t0
-    log(f"[build] kernels built in {build_s:.2f} s")
+    native_build.join()
+    log(f"[build] kernels built in {build_s:.2f} s; native runtime "
+        f"{'built' if runtime.available() else 'NOT built'} in "
+        f"{time.perf_counter() - t0:.2f} s")
     for line in ck.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[build] {line.strip()}")
@@ -1198,6 +1483,13 @@ def main(argv=None) -> int:
                         for n in LM_PHASES)
             + f"; iteration {split['wall_ms']:.3f} ms, device busy "
             f"{sum(split[n]['busy_ms'] for n in LM_PHASES):.3f} ms ({card})")
+    if splits["B6"]["back-substitution"]["blocking"] > 0:
+        fail(f"BA split: {splits['B6']['back-substitution']['blocking']} "
+             f"blocking calls in back-substitution on B6 (want 0)")
+
+    # ---- 4f. the disk path ---------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        disk_phase(pipeline, ck, L, R, scene, cfg, batch, card, Path(tmp))
 
     # ---- 5. profile (optional) ---------------------------------------------
     if args.profile:

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from .models.bundle import BundleResult
-from .models.frontend import FrontendResult
+from .models.frontend import DescriptorBank, FrontendResult
 from .ops.cuda_kernels import resolve_device
 
 _FRONTEND_ARRAYS = ("xy", "valid", "links", "link_valid", "match_prev",
@@ -33,14 +33,15 @@ def _get(src, name):
 def frontend_result(src, device="cuda") -> FrontendResult:
     """A port FrontendResult from the JAX package's frontend output; its
     descriptors (``desc``: a numpy array, or anything with ``numpy()``
-    such as the JAX DescriptorBank) become one float16 tensor on
-    ``device`` (the card unless the caller names the CPU)."""
+    such as the JAX DescriptorBank) become a one-chunk DescriptorBank of
+    float16 on ``device`` (the card unless the caller names the CPU)."""
     device = resolve_device(device)
     desc = _get(src, "desc")
     desc = desc.numpy() if hasattr(desc, "numpy") else np.asarray(desc)
     arrays = {k: np.array(_get(src, k)) for k in _FRONTEND_ARRAYS}
+    chunk = torch.as_tensor(desc.astype(np.float16), device=device)
     return FrontendResult(
-        desc=torch.as_tensor(desc.astype(np.float16), device=device),
+        desc=DescriptorBank([(0, chunk.shape[0], chunk)], device=device),
         **arrays)
 
 

@@ -270,14 +270,21 @@ def optimize_windows(batch: BundleBatch, calib,
                      cfg: BundleConfig = BundleConfig(),
                      device_batch: int = 64, device="cuda") -> BundleResult:
     """Optimize all windows with the batched LM solver in ``device_batch``
-    groups (the tail group padded with zero-weight copies of its last
-    window, so every group has one shape), then extract each window's
-    relative pose and covariance and chain the keyframe trajectory."""
+    slices (the tail slice padded with zero-weight copies of its last
+    window, so every slice has one shape), then extract each window's
+    relative pose and covariance and chain the keyframe trajectory.
+
+    Slices are pipelined as in the JAX package: slice s+1 is uploaded
+    (from pinned host memory) and dispatched before slice s's results,
+    copied back into pinned memory behind an event, are taken in."""
     device = resolve_device(device)
-    calib_t = torch.tensor(np.asarray(calib, np.float32), device=device)
+    cuda = device.type == "cuda"
+    calib_t = torch.from_numpy(np.asarray(calib, np.float32)).to(device)
     B = batch.num_windows
-    parts = {k: [] for k in ("cost0", "poses", "points", "w", "cost", "covs")}
-    for s in range(0, B, device_batch):
+    names = ("cost0", "poses", "points", "w", "cost", "covs")
+    parts = {k: [] for k in names}
+
+    def submit(s):
         e = min(s + device_batch, B)
         pad = device_batch - (e - s) if B > device_batch else 0
 
@@ -285,7 +292,12 @@ def optimize_windows(batch: BundleBatch, calib,
             x = a[s:e]
             if pad:
                 x = np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
-            return torch.as_tensor(x, device=device, dtype=dtype)
+            t = torch.from_numpy(np.ascontiguousarray(x))
+            if dtype is not None:
+                t = t.to(dtype)
+            if cuda:
+                t = t.pin_memory()
+            return t.to(device, non_blocking=True)
 
         p0, x0 = sl(batch.poses0), sl(batch.points0)
         ci = sl(batch.cam_idx, torch.int64)
@@ -300,8 +312,28 @@ def optimize_windows(batch: BundleBatch, calib,
         covs = ba.pose_covariances(poses, points, ci, li, ms, w2, calib_t)
         cost0 = ba._cost(p0, x0, ci, li, ms, ww, calib_t)
         n = e - s
-        for k, v in zip(parts, (cost0, poses, points, w2, cost, covs)):
-            parts[k].append(v[:n].cpu().numpy())
+        host = [v[:n].to("cpu", non_blocking=True)
+                for v in (cost0, poses, points, w2, cost, covs)]
+        ready = None
+        if cuda:
+            ready = torch.cuda.Event()
+            ready.record()
+        return host, ready
+
+    def materialize(pend):
+        host, ready = pend
+        if ready is not None:
+            ready.synchronize()
+        for k, v in zip(names, host):
+            parts[k].append(v.numpy().copy())
+
+    pend = None
+    for s in range(0, B, device_batch):
+        cur = submit(s)
+        if pend is not None:
+            materialize(pend)
+        pend = cur
+    materialize(pend)
     out = {k: np.concatenate(v) for k, v in parts.items()}
     last = batch.n_poses - 1
     rel_T = out["poses"][np.arange(B), last]

@@ -20,14 +20,26 @@ at each of ``max(num_levels, 2)`` octaves); ORB and SIFT are not ported
 yet. Under ``MatchConfig(norm="hamming")`` the descriptors are binarized
 to +-1 signs and every matching gate and reported distance is in bits.
 
-Descriptors stay on the device as one float16 (F, K, D) tensor; only
-keyframes are ever gathered from it (loop closure). Checkpoint/resume is
-not ported yet.
+Descriptors stay on the device as float16 (F, K, D) chunks in a
+``DescriptorBank``; only keyframes are ever gathered from it (loop
+closure). ``run_frontend`` overlaps the host and the device as the JAX
+package's does: chunk s+1 is uploaded from pinned staging buffers on a
+copy stream while chunk s computes, and chunk s's outputs are read back
+into pinned memory and taken in one chunk behind. With a checkpoint path
+it writes incremental checkpoints in the JAX package's format (without
+descriptors, which a resumed run recomputes on demand), and resumes from
+them exactly.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+import hashlib
+import json
+import os
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -37,13 +49,120 @@ from ..ops import (akaze, binary, cuda_kernels, features, matching, ransac,
                    stereo)
 
 
+class DescriptorBank:
+    """The frontend's float16 descriptors, kept on the device per chunk
+    and served by frame index (counterpart of the JAX package's bank).
+
+    Only keyframes are ever read (loop closure's gathers), so nothing is
+    stacked or copied to the host unless asked. Chunks resumed from a
+    checkpoint hold None and are recomputed from the images on first
+    access, only those that hold a frame asked for.
+
+    Serves ``bank[int]``, ``bank[int array or tensor]`` (a gather),
+    ``bank[slice]``, ``gather(frames)``, ``shape``, ``len``, ``dtype``,
+    ``device`` and ``numpy()``."""
+
+    dtype = torch.float16
+
+    def __init__(self, chunks: list, recompute_fn=None, device="cpu"):
+        # chunks: (start, n, (n, K, D) tensor or None), in frame order
+        self._chunks = list(chunks)
+        self._recompute = recompute_fn
+        self._stacked = None
+        self.device = torch.device(device)
+
+    def _chunk(self, ci: int):
+        start, n, arr = self._chunks[ci]
+        if arr is None:
+            if self._recompute is None:
+                raise RuntimeError("descriptor chunk missing and no "
+                                   "recompute source (images) available")
+            arr = self._recompute(start, n)
+            self._chunks[ci] = (start, n, arr)
+        return start, arr
+
+    def _ensure(self) -> torch.Tensor:
+        if self._stacked is None:
+            parts = [self._chunk(ci)[1] for ci in range(len(self._chunks))]
+            self._stacked = torch.cat(parts) if len(parts) > 1 else parts[0]
+            self._chunks = None
+        return self._stacked
+
+    def gather(self, frames) -> torch.Tensor:
+        """Descriptors of the given frames (an int array or tensor of any
+        shape), materializing only the chunks they live in."""
+        idx = (frames.cpu().numpy() if torch.is_tensor(frames)
+               else np.asarray(frames)).astype(np.int64)
+        flat = np.where(idx < 0, idx + len(self), idx).reshape(-1)
+        if self._stacked is not None:
+            out = self._stacked[torch.as_tensor(flat, device=self.device)]
+            return out.reshape(idx.shape + out.shape[1:])
+        starts = np.asarray([c[0] for c in self._chunks])
+        owner = np.searchsorted(starts, flat, side="right") - 1
+        parts, order = [], []
+        for ci in np.unique(owner):
+            sel = np.nonzero(owner == ci)[0]
+            start, arr = self._chunk(int(ci))
+            parts.append(arr[torch.as_tensor(flat[sel] - start,
+                                             device=arr.device)])
+            order.append(sel)
+        if not parts:
+            return torch.empty(idx.shape + self.shape[1:], dtype=self.dtype,
+                               device=self.device)
+        out = torch.cat(parts)
+        order = np.concatenate(order)
+        if (order != np.arange(len(order))).any():
+            out = out[torch.as_tensor(np.argsort(order), device=out.device)]
+        return out.reshape(idx.shape + out.shape[1:])
+
+    def __getitem__(self, idx):
+        if self._stacked is not None and not isinstance(idx, np.ndarray):
+            return self._stacked[idx]
+        if isinstance(idx, (int, np.integer)):
+            f = int(idx) + (len(self) if int(idx) < 0 else 0)
+            for ci, (start, n, _) in enumerate(self._chunks):
+                if start <= f < start + n:
+                    start, arr = self._chunk(ci)
+                    return arr[f - start]
+            raise IndexError(f"frame {idx} out of range")
+        if isinstance(idx, (list, np.ndarray)) or (
+                torch.is_tensor(idx) and not idx.dtype.is_floating_point
+                and idx.dtype != torch.bool):
+            return self.gather(idx)
+        return self._ensure()[idx]
+
+    def __len__(self) -> int:
+        if self._stacked is not None:
+            return int(self._stacked.shape[0])
+        return sum(n for _, n, _ in self._chunks)
+
+    @property
+    def shape(self) -> tuple:
+        if self._stacked is not None:
+            return tuple(self._stacked.shape)
+        total = len(self)
+        for _, _, arr in self._chunks:
+            if arr is not None:
+                return (total,) + tuple(arr.shape[1:])
+        # every chunk was resumed from a checkpoint: recompute one to learn
+        # (K, D) rather than break the (F, K, D) contract
+        if self._chunks and self._recompute is not None:
+            return (total,) + tuple(self._chunk(0)[1].shape[1:])
+        return (total,)
+
+    def numpy(self) -> np.ndarray:
+        """Every frame's descriptors on the host (an explicit export; the
+        pipeline never calls it)."""
+        return self._ensure().cpu().numpy()
+
+
 @dataclass
 class FrontendResult:
     """Host-side SoA output of the frontend over a sequence (K = max_kp
     slots per frame, masked); ``desc`` stays on the device."""
 
     xy: np.ndarray            # (F, K, 2) left-image keypoints
-    desc: torch.Tensor        # (F, K, D) float16 descriptors, on the device
+    desc: DescriptorBank      # (F, K, D) float16 descriptors, on the device
     valid: np.ndarray         # (F, K) keypoint-slot validity
     links: np.ndarray         # (F, K, 3) stereo links (xl, xr, y)
     link_valid: np.ndarray    # (F, K) stereo-gated validity
@@ -239,53 +358,353 @@ def chunk_generator(cfg: SlamConfig, chunk_index: int,
     return g
 
 
+def recompute_descriptors(chunk_left: torch.Tensor,
+                          chunk_right: torch.Tensor,
+                          cfg: SlamConfig) -> torch.Tensor:
+    """The left images' float16 descriptors of one chunk, equal bit for
+    bit to what process_chunk produced for it: detection runs on the same
+    (2F, H, W) left-and-right batch, since on the card cuDNN and cuBLAS
+    choose their algorithms by shape, and a left-only batch can round
+    differently in the last bits."""
+    F = chunk_left.shape[0]
+    feats = _detect_describe(torch.cat([chunk_left, chunk_right], dim=0), cfg)
+    return feats["desc"][:F].half()
+
+
+# ---------------------------------------------------------------------------
+# incremental checkpoints, in the JAX package's format
+# ---------------------------------------------------------------------------
+
+# Descriptors are not checkpointed (~0.5 MB per frame at K = 2048, most of
+# a checkpoint's bytes); a resumed run recomputes them on demand.
+_CKPT_KEYS = (
+    "xy", "valid", "links", "link_valid", "match_prev", "match_dist",
+    "inlier_prev", "T_rel", "num_inliers", "inlier_frac", "pose_ok",
+)
+
+
+def _seg_path(path, k: int) -> Path:
+    p = Path(path)
+    return p.with_name(p.stem + f".seg{k:04d}" + p.suffix)
+
+
+def _atomic_savez(path, **arrs) -> None:
+    """np.savez with an atomic replace: a crash mid-write must not leave a
+    truncated file at ``path``, the resume root."""
+    # a .npz-suffixed temp name keeps numpy from appending its own suffix
+    tmp = Path(path).with_name(Path(path).name + ".tmp.npz")
+    np.savez(str(tmp), **arrs)
+    os.replace(str(tmp), str(path))
+
+
+def _frontend_fingerprint(cfg: SlamConfig) -> str:
+    """Hash of every config field that determines frontend results: all
+    of ``features``, ``matching`` and ``ransac``, the seed and the chunk
+    size (chunk boundaries and the position-based RANSAC streams).
+
+    Deliberately unlike the JAX package's, which hashes only the fields
+    that differ from their defaults: there, a field left at a default
+    that a later release changed keeps the old fingerprint, and frames
+    computed under two settings would be stitched. So a checkpoint the
+    JAX package wrote loads here, but its resume is refused."""
+    sub = {k: dataclasses.asdict(getattr(cfg, k))
+           for k in ("features", "matching", "ransac")}
+    sub["seed"] = cfg.seed
+    sub["chunk_frames"] = cfg.runtime.chunk_frames
+    blob = json.dumps(sub, sort_keys=True).encode()
+    return hashlib.sha1(blob).hexdigest()[:16]
+
+
+def _meta(T_carry, next_start, num_segments, fingerprint, carry) -> dict:
+    meta = {"T_carry": T_carry, "next_start": np.int64(next_start),
+            "num_segments": np.int64(num_segments)}
+    if fingerprint:
+        meta["cfg_fingerprint"] = np.str_(fingerprint)
+    for k, v in (carry or {}).items():
+        meta[f"carry_{k}"] = np.asarray(v)
+    return meta
+
+
+def _save_checkpoint(path, seg_outs, seg_T_w2c, carry, T_carry, next_start,
+                     seg_idx: int, fingerprint: str = "") -> None:
+    """Incremental checkpoint: the frames since the last one as
+    ``<path>.segNNNN.npz``, then the meta file at ``path`` (the carry as
+    host arrays, the segment count), written last and atomically so that a
+    crash mid-segment leaves the previous checkpoint whole. The files are
+    not compressed (the JAX package's are; np.load reads both): zlib costs
+    the host many times the write (``chip_smoke.py`` prints both)."""
+    blob = {k: np.concatenate([o[k] for o in seg_outs], axis=0)
+            for k in _CKPT_KEYS + ("T_chain",)}
+    blob["T_w2c"] = np.concatenate(seg_T_w2c, axis=0)
+    np.savez(str(_seg_path(path, seg_idx)), **blob)
+    _atomic_savez(path, **_meta(T_carry, next_start, seg_idx + 1,
+                                fingerprint, carry))
+
+
+def load_frontend_checkpoint(path):
+    """(outs list, T_w2c list, carry dict of host arrays or None, T_carry,
+    next start) of a checkpoint written by either package, per-segment or
+    legacy monolithic."""
+    z = np.load(str(path))
+    carry = {k[len("carry_"):]: z[k] for k in z.files
+             if k.startswith("carry_")} or None
+    if "num_segments" in z.files:  # per-segment layout
+        outs, T_list = [], []
+        for k in range(int(z["num_segments"])):
+            s = np.load(str(_seg_path(path, k)))
+            out = {key: s[key] for key in _CKPT_KEYS + ("T_chain",)}
+            if "desc" in s.files:  # older checkpoints stored descriptors
+                out["desc"] = s["desc"]
+            outs.append(out)
+            T_list.append(s["T_w2c"])
+        return outs, T_list, carry, z["T_carry"], int(z["next_start"])
+    missing = [k for k in _CKPT_KEYS + ("T_chain", "T_w2c")
+               if k not in z.files]
+    if missing:
+        raise RuntimeError(f"frontend checkpoint {path} predates the "
+                           f"current format (missing arrays: {missing}); "
+                           f"delete it to recompute")
+    out = {k: z[k] for k in _CKPT_KEYS + ("T_chain",)}
+    if "desc" in z.files:
+        out["desc"] = z["desc"]
+    return [out], [z["T_w2c"]], carry, z["T_carry"], int(z["next_start"])
+
+
+def _resume_from_checkpoint(checkpoint_path, fingerprint: str):
+    """Validate and load a checkpoint for resume: (outs, T_w2c_all, carry,
+    T_carry, next start, segment count, descriptor chunks, legacy).
+    Raises RuntimeError when it was written under another
+    result-determining config (or by the JAX package, whose fingerprint
+    differs on purpose; see _frontend_fingerprint)."""
+    with np.load(str(checkpoint_path)) as z:
+        legacy = "num_segments" not in z.files
+        saved = (str(z["cfg_fingerprint"]) if "cfg_fingerprint" in z.files
+                 else None)
+    if saved is not None and saved != fingerprint:
+        raise RuntimeError(
+            f"frontend checkpoint {checkpoint_path} was written under a "
+            f"different feature/matching/ransac/chunking config "
+            f"(fingerprint {saved} != {fingerprint}); delete it (and its "
+            f".segNNNN files) to recompute, or rerun with the original "
+            f"config")
+    outs, T_w2c_all, carry, T_carry, first_start = load_frontend_checkpoint(
+        checkpoint_path)
+    desc_chunks, pos = [], 0
+    for o in outs:
+        n_o = o["xy"].shape[0]
+        desc_chunks.append((pos, n_o, o.pop("desc", None)))
+        pos += n_o
+    return (outs, T_w2c_all, carry, T_carry, first_start, len(outs),
+            desc_chunks, legacy)
+
+
+def _convert_legacy_checkpoint(path, outs, T_w2c_all, carry, T_carry,
+                               next_start, fingerprint: str = "") -> None:
+    """Rewrite a legacy monolithic checkpoint as segment 0 + meta, before
+    any incremental save: _save_checkpoint replaces ``path`` with the
+    meta alone, which would destroy the only copy of the loaded frames."""
+    blob = {k: np.concatenate([o[k] for o in outs], axis=0)
+            for k in _CKPT_KEYS + ("T_chain",)}
+    blob["T_w2c"] = np.concatenate(T_w2c_all, axis=0)
+    np.savez(str(_seg_path(path, 0)), **blob)
+    _atomic_savez(path, **_meta(T_carry, next_start, 1, fingerprint, carry))
+
+
+# ---------------------------------------------------------------------------
+# the frontend over a sequence
+# ---------------------------------------------------------------------------
+
+class ArrayFrames:
+    """In-memory (F, H, W) stereo images (uint8, or anything else as
+    float32 in [0, 1]) as the frontend's frame source: ``fill`` copies
+    frames [start, start + n) into (chunk, H, W) host buffers and zeroes
+    the rest."""
+
+    def __init__(self, left, right):
+        self.left, self.right = left, right
+        self.num = int(left.shape[0])
+        self.hw = tuple(left.shape[1:])
+        self.dtype = torch.uint8 if left.dtype == np.uint8 else torch.float32
+
+    def begin(self, first_start: int, chunk: int) -> None:
+        pass
+
+    def end(self) -> None:
+        pass
+
+    def fill(self, start: int, n: int, dst_left, dst_right) -> None:
+        np_dtype = np.uint8 if self.dtype == torch.uint8 else np.float32
+        for src, dst in ((self.left, dst_left), (self.right, dst_right)):
+            dst[:n].copy_(torch.from_numpy(np.ascontiguousarray(
+                src[start:start + n], np_dtype)))
+            dst[n:].zero_()
+
+
+def _recompute_chunks(frames, cfg: SlamConfig, device, start: int,
+                      n: int) -> torch.Tensor:
+    """Descriptors of frames [start, start + n) (a resumed checkpoint
+    segment, chunk-aligned), recomputed chunk by chunk at the chunk
+    shape process_chunk ran, tail zero-padded as it was."""
+    chunk = cfg.runtime.chunk_frames
+    bl, br = (torch.empty((chunk,) + frames.hw, dtype=frames.dtype)
+              for _ in range(2))
+    parts = []
+    for s in range(start, start + n, chunk):
+        m = min(chunk, start + n - s)
+        frames.fill(s, m, bl, br)
+        parts.append(recompute_descriptors(bl.to(device), br.to(device),
+                                           cfg)[:m])
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+def run_frames(frames, calib, cfg: SlamConfig, device,
+               checkpoint_path: str | None = None,
+               checkpoint_every: int = 500,
+               resume: bool = False) -> FrontendResult:
+    """The frontend over a frame source (``ArrayFrames``, or the PNG
+    source of ``parallel.pipeline``), chunk by chunk on ``device``.
+
+    On the card the host and the device overlap: the next chunk is filled
+    into one of two pinned staging buffer pairs (a pair is refilled only
+    after its last upload finished) and uploaded on a copy stream, which
+    the compute stream waits for; each chunk's per-frame outputs are read
+    back into pinned memory behind an event and taken in one chunk later.
+    The outputs equal a sequential loop's bit for bit: the same inputs,
+    the same ops, and RANSAC seeded by the chunk's position."""
+    _check_supported(cfg)
+    device = cuda_kernels.resolve_device(device)
+    cuda = device.type == "cuda"
+    nF, chunk = frames.num, cfg.runtime.chunk_frames
+    calib_t = torch.from_numpy(np.asarray(calib, np.float32)).to(device)
+    fingerprint = _frontend_fingerprint(cfg)
+    recompute = functools.partial(_recompute_chunks, frames, cfg, device)
+
+    outs, T_w2c_all, desc_chunks = [], [], []
+    carry, T_carry = None, np.eye(4, dtype=np.float32)
+    first_start, seg_idx = 0, 0
+    if resume and checkpoint_path and Path(checkpoint_path).exists():
+        (outs, T_w2c_all, carry, T_carry, first_start, seg_idx, desc_chunks,
+         legacy) = _resume_from_checkpoint(checkpoint_path, fingerprint)
+        if legacy and first_start < nF:
+            # frames will be appended: migrate the monolithic file first
+            _convert_legacy_checkpoint(checkpoint_path, outs, T_w2c_all,
+                                       carry, T_carry, first_start,
+                                       fingerprint)
+        if carry is not None:
+            carry = {k: torch.from_numpy(v).to(device)
+                     for k, v in carry.items()}
+        desc_chunks = [(s, n, None if d is None else torch.from_numpy(
+            np.asarray(d, np.float16)).to(device)) for s, n, d in desc_chunks]
+    starts = list(range(first_start, nF, chunk))
+    if not starts:  # the checkpoint covers the whole sequence
+        return _assemble_result(outs, T_w2c_all, desc_chunks, recompute,
+                                device)
+
+    shape = (chunk,) + frames.hw
+    staging = [tuple(torch.empty(shape, dtype=frames.dtype, pin_memory=cuda)
+                     for _ in range(2)) for _ in range(2)]
+    uploaded = [None, None]  # per staging pair: its last upload's event
+    copy_stream = torch.cuda.Stream(device) if cuda else None
+    compute = torch.cuda.current_stream(device) if cuda else None
+
+    def upload(i: int, start: int):
+        pair = i % 2
+        if uploaded[pair] is not None:
+            uploaded[pair].synchronize()
+        n = min(chunk, nF - start)
+        frames.fill(start, n, *staging[pair])
+        if not cuda:  # the CPU computes on the staging buffers themselves
+            return staging[pair], n
+        with torch.cuda.stream(copy_stream):
+            dev = tuple(b.to(device, non_blocking=True)
+                        for b in staging[pair])
+            uploaded[pair] = torch.cuda.Event()
+            uploaded[pair].record(copy_stream)
+        return dev, n
+
+    last_ckpt, seg_outs, seg_T = first_start, [], []
+
+    def materialize(pend) -> None:
+        nonlocal T_carry, last_ckpt, seg_idx, seg_outs, seg_T
+        start_p, n_p, host, ready, carry_p, is_last = pend
+        if ready is not None:
+            ready.synchronize()
+        # copied off the pinned blocks, which return to the allocator
+        o = {k: v.numpy().copy() for k, v in host.items()}
+        T_w2c = o["T_chain"] @ T_carry[None]
+        T_carry = T_w2c[-1]
+        T_w2c_all.append(T_w2c)
+        outs.append(o)
+        seg_outs.append(o)
+        seg_T.append(T_w2c)
+        done = start_p + n_p
+        # carry_p is the carry as of this chunk, not the live one, which
+        # has moved past the chunk dispatched since
+        if checkpoint_path and (done - last_ckpt >= checkpoint_every
+                                or (is_last and seg_outs)):
+            _save_checkpoint(checkpoint_path, seg_outs, seg_T,
+                             {k: v.cpu().numpy() for k, v in carry_p.items()},
+                             T_carry, done, seg_idx, fingerprint)
+            last_ckpt = done
+            seg_idx += 1
+            seg_outs, seg_T = [], []
+
+    frames.begin(first_start, chunk)
+    try:
+        nxt = upload(0, starts[0])
+        pending = None
+        for i, start in enumerate(starts):
+            (bl, br), n = nxt
+            if cuda:
+                compute.wait_event(uploaded[i % 2])
+                bl.record_stream(compute)
+                br.record_stream(compute)
+            out, carry = process_chunk(
+                bl, br, carry, calib_t, cfg,
+                generator=chunk_generator(cfg, start // chunk, device))
+            desc_chunks.append((start, n, out.pop("desc")[:n]))
+            host = {k: v[:n].to("cpu", non_blocking=True)
+                    for k, v in out.items()}
+            ready = None
+            if cuda:
+                ready = torch.cuda.Event()
+                ready.record(compute)
+            if i + 1 < len(starts):  # the host fills while the card works
+                nxt = upload(i + 1, starts[i + 1])
+            if pending is not None:
+                materialize(pending)
+            pending = (start, n, host, ready, carry, i + 1 == len(starts))
+        materialize(pending)
+    finally:
+        frames.end()
+    return _assemble_result(outs, T_w2c_all, desc_chunks, recompute, device)
+
+
 def run_frontend(images_left: np.ndarray, images_right: np.ndarray, calib,
                  cfg: SlamConfig = SlamConfig(), device="cuda",
                  checkpoint_path: str | None = None,
+                 checkpoint_every: int = 500,
                  resume: bool = False) -> FrontendResult:
     """The frontend over a sequence of in-memory (F, H, W) images (uint8
-    or float32 in [0, 1]), chunk by chunk on ``device``."""
-    if checkpoint_path is not None or resume:
-        raise NotImplementedError(
-            "frontend checkpoint/resume is still to be ported (ROADMAP.md)")
-    _check_supported(cfg)
-    device = cuda_kernels.resolve_device(device)
-    nF = images_left.shape[0]
-    chunk = cfg.runtime.chunk_frames
-    calib_t = torch.tensor(np.asarray(calib, np.float32), device=device)
-    dtype = images_left.dtype if images_left.dtype == np.uint8 else np.float32
+    or float32 in [0, 1]), chunk by chunk on ``device``. With
+    ``checkpoint_path`` the state is checkpointed every
+    ``checkpoint_every`` frames (at chunk ends), and ``resume=True``
+    continues from the last checkpoint, equal bit for bit to an
+    uninterrupted run."""
+    return run_frames(ArrayFrames(images_left, images_right), calib, cfg,
+                      device, checkpoint_path, checkpoint_every, resume)
 
-    def upload(imgs, start):
-        blk = np.ascontiguousarray(imgs[start:start + chunk], dtype)
-        n = blk.shape[0]
-        if n < chunk:  # pad the tail chunk: one shape for every chunk
-            blk = np.concatenate(
-                [blk, np.zeros((chunk - n,) + blk.shape[1:], dtype)])
-        return torch.from_numpy(blk).to(device, non_blocking=True), n
 
-    outs, descs, T_w2c_all = [], [], []
-    carry = None
-    T_carry = np.eye(4, dtype=np.float32)
-    for ci, start in enumerate(range(0, nF, chunk)):
-        bl, n = upload(images_left, start)
-        br, _ = upload(images_right, start)
-        out, carry = process_chunk(bl, br, carry, calib_t, cfg,
-                                   generator=chunk_generator(cfg, ci, device))
-        descs.append(out.pop("desc")[:n])
-        host = {k: v[:n].cpu().numpy() for k, v in out.items()}
-        T_w2c = host["T_chain"] @ T_carry[None]
-        T_carry = T_w2c[-1]
-        T_w2c_all.append(T_w2c)
-        outs.append(host)
-
+def _assemble_result(outs, T_w2c_all, desc_chunks, recompute_fn,
+                     device) -> FrontendResult:
     def cat(k):
         return np.concatenate([o[k] for o in outs], axis=0)
 
     T_rel = cat("T_rel")
-    T_rel[0] = np.eye(4, dtype=T_rel.dtype)
+    T_rel[0] = np.eye(4, dtype=T_rel.dtype)  # frame 0 has no previous
     return FrontendResult(
-        xy=cat("xy"), desc=torch.cat(descs, dim=0), valid=cat("valid"),
-        links=cat("links"), link_valid=cat("link_valid"),
+        xy=cat("xy"), desc=DescriptorBank(desc_chunks, recompute_fn, device),
+        valid=cat("valid"), links=cat("links"), link_valid=cat("link_valid"),
         match_prev=cat("match_prev"), match_dist=cat("match_dist"),
         inlier_prev=cat("inlier_prev"), T_rel=T_rel,
         T_w2c=np.concatenate(T_w2c_all, axis=0),

@@ -13,8 +13,10 @@ Counterpart of ``slam_tpu/models/loop_closure.py``:
     onto old ones are deferred; on leaving the segment they are re-verified
     from the back and exactly one more closure is committed.
 
-Descriptors arrive as the frontend's float16 device tensor; the matcher
-rounds them to bf16, as the JAX package's matcher does.
+Descriptors arrive as the frontend's float16 ``DescriptorBank`` on the
+device (or any (F, K, D) tensor); only the keyframes verified are
+gathered from it. The matcher rounds them to bf16, as the JAX package's
+matcher does.
 """
 
 from __future__ import annotations
@@ -68,9 +70,10 @@ def _verify_candidates(desc_q, valid_q, links_q, lvalid_q, desc_c, valid_c,
 
 
 def _refine_pair(links_i, links_j, inlier_mask, match_tgt, T_init, calib,
-                 max_landmarks: int = 512, device="cpu"):
+                 calib_t: torch.Tensor, max_landmarks: int = 512):
     """2-pose bundle on the inlier correspondences, padded to
-    ``max_landmarks``; returns (rel_T, rel_cov) as numpy."""
+    ``max_landmarks``, on ``calib_t``'s device (``calib`` is the same
+    calibration on the host); returns (rel_T, rel_cov) as numpy."""
     idx = np.nonzero(np.asarray(inlier_mask))[0][:max_landmarks]
     L = max_landmarks
     li = np.zeros(2 * L, np.int64)
@@ -92,9 +95,8 @@ def _refine_pair(links_i, links_j, inlier_mask, match_tgt, T_init, calib,
                        np.asarray(T_init, np.float32)])
 
     def t(x):
-        return torch.as_tensor(x, device=device)[None]
+        return torch.as_tensor(x, device=calib_t.device)[None]
 
-    calib_t = torch.tensor(np.asarray(calib, np.float32), device=device)
     ci_t, li_t, meas_t = t(ci), t(li), t(meas)
     poses, points, w2, _ = ba.optimize_bundle_pruned(
         t(poses0), t(points0), ci_t, li_t, meas_t, t(w), calib_t, iters=15)
@@ -102,21 +104,22 @@ def _refine_pair(links_i, links_j, inlier_mask, match_tgt, T_init, calib,
     return poses[0, 1].cpu().numpy(), covs[0, 1].cpu().numpy()
 
 
-def find_loops(pg: PoseGraph, db: TrackStore, desc: torch.Tensor,
+def find_loops(pg: PoseGraph, db: TrackStore, desc,
                desc_valid: np.ndarray, calib, cfg: SlamConfig = SlamConfig(),
                timings: dict | None = None) -> list[Closure]:
     """Scan keyframes in order, gate by Mahalanobis distance, verify by
     batched matching + RANSAC, refine by mini-bundle, insert the edge and
     re-optimize. Mutates ``pg``; returns the accepted closures.
 
-    ``desc`` is the frontend's (F, K, D) device tensor; every other input
-    is host numpy. The verification runs on ``desc``'s device. Stage
+    ``desc`` is the frontend's (F, K, D) DescriptorBank (or a tensor);
+    every other input is host numpy. The verification runs on ``desc``'s
+    device, with the calibration copied there once. Stage
     times (gate, verify, refine, re-optimize) accumulate into ``timings``
     when it is given."""
     lc: LoopConfig = cfg.loop
     device = desc.device
     calib_np = np.asarray(calib, np.float32)
-    calib_t = torch.tensor(calib_np, device=device)
+    calib_t = torch.from_numpy(calib_np).to(device)
     kfs = pg.keyframes
     N = pg.num_nodes
     gen = torch.Generator(device=device)
@@ -177,8 +180,8 @@ def find_loops(pg: PoseGraph, db: TrackStore, desc: torch.Tensor,
 
         def run():
             vr = _verify_candidates(
-                desc[dev(f_q)], dev(desc_valid[f_q]), dev(db.links[f_q]),
-                dev(db.link_valid[f_q]), desc[dev(f_c)],
+                desc[f_q], dev(desc_valid[f_q]), dev(db.links[f_q]),
+                dev(db.link_valid[f_q]), desc[f_c],
                 dev(desc_valid[f_c]), dev(db.links[f_c]),
                 dev(db.link_valid[f_c]), calib_t, cfg.ransac.num_hypotheses,
                 cfg.ransac.threshold_px, generator=gen)
@@ -215,7 +218,7 @@ def find_loops(pg: PoseGraph, db: TrackStore, desc: torch.Tensor,
         fj = kfs[n]
         rel_T, rel_cov = _timed("refine_s", lambda: _refine_pair(
             db.links[fi], db.links[fj], inliers, match_tgt, T0, calib_np,
-            max_landmarks=cfg.bundle.max_landmarks, device=device))
+            calib_t, max_landmarks=cfg.bundle.max_landmarks))
         closures.append(Closure(kf_i=g, kf_j=n, frame_i=fi, frame_j=fj,
                                 num_inliers=n_inl, inlier_frac=frac,
                                 rel_T=rel_T, rel_cov=rel_cov,

@@ -132,6 +132,20 @@ class PoseGraph:
         """(N, 6, N, 6) posterior covariance."""
         return pg_ops.gn_hessian_inverse(*self._device_args()).cpu().numpy()
 
+    def marginal(self, i: int, C: np.ndarray | None = None) -> np.ndarray:
+        """Marginal 6x6 covariance of node ``i`` (from ``C``, the
+        covariance_full of this graph, when given)."""
+        C = self.covariance_full() if C is None else C
+        return C[i, :, i, :]
+
+    def relative_covariance(self, i: int, j: int,
+                            C: np.ndarray | None = None) -> np.ndarray:
+        """Covariance of the relative perturbation of node ``j`` against
+        node ``i`` (from ``C`` when given)."""
+        C = self.covariance_full() if C is None else C
+        return pg_ops.relative_covariance(torch.from_numpy(np.asarray(C)),
+                                          i, j).numpy()
+
     def marginal_logdets(self) -> tuple[np.ndarray, np.ndarray]:
         loc, rot = pg_ops.marginal_logdets(*self._device_args())
         return loc.cpu().numpy(), rot.cpu().numpy()

@@ -1,9 +1,9 @@
 """Tensorized feature-track store.
 
-The port's own copy of ``slam_tpu/models/trackstore.py``, with the numpy
-chaining only: the JAX package's C++ ``build_tracks`` gives the same ids
-by construction, and the port has no native runtime of its own yet
-(ROADMAP.md queue A).
+The port's own copy of ``slam_tpu/models/trackstore.py``. Track ids are
+chained by the port's native ``runtime.build_tracks`` (C++), or by the
+numpy ``chain_tracks`` where the runtime cannot be built; both issue the
+same ids by construction.
 
 Replaces the reference's object/dict-based ``TrackingDB``
 (final_project/backend/database/tracking_database.py:75-471: dict-of-dicts
@@ -87,12 +87,21 @@ class TrackStore:
     # construction
     # ------------------------------------------------------------------
     @staticmethod
-    def from_frontend(front) -> "TrackStore":
+    def from_frontend(front, use_native: bool = True) -> "TrackStore":
         """Build from a FrontendResult in one vectorized pass.
 
         Track assignment is the only sequential-by-frame step (it chains
-        ids through time): per-frame numpy vector ops (chain_tracks).
+        ids through time): one C++ pass (``runtime.build_tracks``) with
+        ``use_native`` when the runtime is available, else per-frame
+        numpy vector ops (chain_tracks).
         """
+        if use_native:
+            from .. import runtime
+
+            if runtime.available():
+                tids, n = runtime.build_tracks(front.match_prev,
+                                               front.inlier_prev)
+                return TrackStore._finalize(front, tids, n)
         F, K = front.link_valid.shape
         track_ids = np.full((F, K), NO_ID, np.int32)
         next_track = chain_tracks(track_ids, 0, front.match_prev,

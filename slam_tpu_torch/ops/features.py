@@ -24,6 +24,7 @@ Images are (F, H, W) float32 in [0, 1].
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -58,15 +59,29 @@ def gaussian_kernel1d(sigma: float, radius: int) -> torch.Tensor:
     return k / torch.sum(k)
 
 
+@functools.lru_cache(maxsize=None)
+def _device_taps(sigma: float, radius: int, device: torch.device):
+    """gaussian_kernel1d's taps on ``device``, copied there once: a copy
+    from pageable host memory per call makes the host wait for the
+    stream."""
+    return gaussian_kernel1d(sigma, radius).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _sobel_taps(device: torch.device):
+    kx = torch.tensor([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]]
+                      ) / 8.0
+    return kx.to(device), kx.T.contiguous().to(device)
+
+
 def gaussian_blur(img: torch.Tensor, sigma: float, radius: int = 3):
-    k = gaussian_kernel1d(sigma, radius).to(img.device)
+    k = _device_taps(float(sigma), int(radius), img.device)
     return _conv2d_same(_conv2d_same(img, k[None, :]), k[:, None])
 
 
 def _sobel(img: torch.Tensor):
-    kx = torch.tensor([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]],
-                      device=img.device) / 8.0
-    return _conv2d_same(img, kx), _conv2d_same(img, kx.T.contiguous())
+    kx, ky = _sobel_taps(img.device)
+    return _conv2d_same(img, kx), _conv2d_same(img, ky)
 
 
 # ---------------------------------------------------------------------------

@@ -94,7 +94,7 @@ def optimize(nodes, e_i, e_j, Z, sqrt_info, iters: int = 15,
         return 0.5 * torch.sum(r * r)
 
     cost = cost_of(nodes)
-    lam = torch.tensor(lam0, dtype=nodes.dtype, device=nodes.device)
+    lam = torch.full((), lam0, dtype=nodes.dtype, device=nodes.device)
     for _ in range(iters):
         r, Ji, Jj = _edge_res_jac(nodes[e_i], nodes[e_j], Z_inv, sqrt_info)
         H, g = _assemble(N, e_i, e_j, Ji, Jj, r)

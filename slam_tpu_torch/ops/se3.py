@@ -133,8 +133,10 @@ def make_T(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(batch + (1, 4))
+    # built on the device: a host tensor here would be a pageable copy,
+    # which makes the host wait for the stream in every LM iteration
+    bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
+    bottom[..., 0, 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -9,15 +9,22 @@ Counterpart of ``slam_tpu/pipeline.py``. Stages:
   5. loop closure       -> PoseGraph + closures (models/loop_closure.py)
   6. evaluation         -> metrics dict
 
-Images are in-memory (F, H, W) arrays; every device stage runs on
-``device``. The stage cache, disk streaming, mesh and overlap modes keep
-their argument names and raise ``NotImplementedError`` until they are
-ported (ROADMAP.md).
+Images are in-memory (F, H, W) arrays, or lists of PNG paths (a KITTI
+sequence on disk: ``utils.kitti.KittiPaths``), which the frontend streams
+through the native prefetcher (parallel/pipeline.py). Every device stage
+runs on ``device``. With ``cache_dir`` every stage's artifact is saved
+there in the JAX package's npz format and loaded instead of recomputed
+while the config, the input fingerprint and every upstream stage are
+unchanged; the frontend resumes from its incremental checkpoint there.
+The mesh and overlap modes keep their argument names and raise
+``NotImplementedError`` until they are ported (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
+import os
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -55,20 +62,51 @@ class PipelineResult:
         return bundle_mod.frame_poses_from_bundles(self.bundles,
                                                    self.db.num_frames)
 
+    def keyframe_trajectory(self, graph: PoseGraph | None = None
+                            ) -> np.ndarray:
+        """Keyframe extrinsics (N, 4, 4) of ``graph`` (by default the
+        loop-closed pose graph)."""
+        return (self.pose_graph if graph is None else graph).nodes
 
-def run_pipeline(images_left: np.ndarray, images_right: np.ndarray, calib,
+
+def input_fingerprint(images_left, images_right) -> str:
+    """The stage cache's input key: the frame count and a sha256 over the
+    first and last images, or, for path lists, over the paths and the
+    (size, mtime_ns) of the first and last files of each side (a dataset
+    rewritten under the same names must not be served stale artifacts)."""
+    h = hashlib.sha256()
+    if isinstance(images_left, (list, tuple)):
+        h.update("\n".join(map(str, images_left)).encode())
+        h.update("\n".join(map(str, images_right)).encode())
+        for p in (images_left[0], images_left[-1], images_right[0],
+                  images_right[-1]):
+            st = os.stat(p)
+            h.update(f"{st.st_size}:{st.st_mtime_ns}".encode())
+    else:
+        h.update(np.asarray(images_left[0]).tobytes())
+        h.update(np.asarray(images_left[-1]).tobytes())
+        h.update(np.asarray(images_right[0]).tobytes())
+    return json.dumps({"frames": int(len(images_left)),
+                       "sha": h.hexdigest()})
+
+
+def run_pipeline(images_left, images_right, calib,
                  cfg: SlamConfig = SlamConfig(), cache_dir=None,
                  run_loop_closure: bool = True, verbose: bool = True,
                  mesh=None, overlap: bool = False, image_hw=None,
                  device="cuda") -> PipelineResult:
-    """The full pipeline on in-memory images, on ``device``: the card by
-    default, where the kernels run (raises without one); ``"cpu"`` runs
-    their plain versions."""
-    if cache_dir is not None:
-        raise NotImplementedError("the stage cache is still to be ported")
-    if isinstance(images_left, (list, tuple)) or image_hw is not None:
-        raise NotImplementedError(
-            "streaming images from disk is still to be ported")
+    """The full pipeline on ``device``: the card by default, where the
+    kernels run (raises without one); ``"cpu"`` runs their plain versions.
+
+    ``images_left`` / ``images_right`` are in-memory (F, H, W) arrays
+    (uint8, or float32 in [0, 1]) or lists of PNG paths; with paths the
+    frames are decoded to uint8 and edge-replicate-padded to ``image_hw``
+    (by default the first image's shape); in-memory images are padded to
+    ``image_hw`` when it is given. ``cache_dir`` keeps the stage
+    artifacts: a stage is loaded instead of recomputed while the cached
+    config and input fingerprint match and every upstream stage was
+    loaded too; the frontend reuses its own checkpoint there (a complete
+    one makes it a pure load)."""
     if mesh is not None or overlap:
         raise NotImplementedError(
             "mesh and overlap modes are still to be ported")
@@ -85,23 +123,86 @@ def run_pipeline(images_left: np.ndarray, images_right: np.ndarray, calib,
         log(f"[pipeline] {name}: {timings[name]:.2f}s")
         return out
 
-    fe = timed("frontend", lambda: frontend_mod.run_frontend(
-        images_left, images_right, calib, cfg, device=device))
-    db = timed("trackstore", lambda: TrackStore.from_frontend(fe))
-    bundles = timed("bundles", lambda: bundle_mod.run_bundles(
-        db, fe.T_w2c, calib, cfg, device=device))
+    cache = Path(cache_dir) if cache_dir is not None else None
+    reuse = False
+    if cache is not None:
+        fingerprint = input_fingerprint(images_left, images_right)
+        cache.mkdir(parents=True, exist_ok=True)
+        cfg_file, fp_file = cache / "config.json", cache / "inputs.json"
+        reuse = (cfg_file.exists() and cfg_file.read_text() == cfg.to_json()
+                 and fp_file.exists() and fp_file.read_text() == fingerprint)
+        if not reuse:
+            cfg.save(cfg_file)
+            fp_file.write_text(fingerprint)
+
+    def stage(name, artifact, compute, load, save):
+        """Load ``artifact`` while the reuse chain holds, else compute and
+        save it (which breaks the chain for every later stage)."""
+        nonlocal reuse
+        if cache is not None and reuse and (cache / artifact).exists():
+            out = timed(name, lambda: load(cache / artifact))
+            log(f"[pipeline] {name}: loaded from cache")
+            return out
+        reuse = False
+        out = timed(name, compute)
+        if cache is not None:
+            save(out, cache / artifact)
+        return out
+
+    ckpt = str(cache / "frontend_ckpt.npz") if cache is not None else None
+    if isinstance(images_left, (list, tuple)):
+        from .parallel.pipeline import run_frontend_pipelined
+        from .utils.kitti import _imread_gray
+
+        if image_hw is None:
+            image_hw = _imread_gray(Path(images_left[0])).shape
+        fe = timed("frontend", lambda: run_frontend_pipelined(
+            list(images_left), list(images_right), image_hw, calib, cfg,
+            checkpoint_path=ckpt, resume=reuse, device=device))
+    else:
+        if image_hw is not None:  # the path mode's bucket semantics
+            from .utils.kitti import pad_to_bucket
+
+            images_left = pad_to_bucket(images_left, tuple(image_hw))
+            images_right = pad_to_bucket(images_right, tuple(image_hw))
+        fe = timed("frontend", lambda: frontend_mod.run_frontend(
+            images_left, images_right, calib, cfg, device=device,
+            checkpoint_path=ckpt, resume=reuse))
+    db = stage("trackstore", "trackstore.npz",
+               lambda: TrackStore.from_frontend(fe), TrackStore.load,
+               lambda o, p: o.save(p))
+    bundles = stage("bundles", "bundles.npz",
+                    lambda: bundle_mod.run_bundles(db, fe.T_w2c, calib, cfg,
+                                                   device=device),
+                    bundle_mod.load_bundles, bundle_mod.save_bundles)
 
     def _pg():
         g = PoseGraph.from_bundles(bundles, device=device)
         g.optimize()
         return g
 
-    pg = timed("pose_graph", _pg)
+    pg = stage("pose_graph", "pose_graph.npz", _pg,
+               lambda p: PoseGraph.load(p, device=device),
+               lambda o, p: o.save(p))
     pg_pre = pg.copy()
     closures = []
     if run_loop_closure:
-        closures = timed("loop_closure", lambda: lc_mod.find_loops(
-            pg, db, fe.desc, fe.valid, calib, cfg))
+        lc_file = cache / "pose_graph_lc.npz" if cache is not None else None
+        cl_file = cache / "closures.npz" if cache is not None else None
+        if cache is not None and reuse and lc_file.exists() \
+                and cl_file.exists():
+            t0 = time.perf_counter()
+            pg = PoseGraph.load(lc_file, device=device)
+            closures = lc_mod.load_closures(cl_file)
+            timings["loop_closure"] = time.perf_counter() - t0
+            log(f"[pipeline] loop_closure: loaded from cache "
+                f"({timings['loop_closure']:.2f}s)")
+        else:
+            closures = timed("loop_closure", lambda: lc_mod.find_loops(
+                pg, db, fe.desc, fe.valid, calib, cfg))
+            if cache is not None:
+                pg.save(lc_file)
+                lc_mod.save_closures(closures, cl_file)
         log(f"[pipeline] {len(closures)} loop closures: "
             f"{[(c.frame_i, c.frame_j, c.num_inliers) for c in closures]}")
     return PipelineResult(frontend=fe, db=db, bundles=bundles,

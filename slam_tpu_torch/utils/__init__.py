@@ -1,1 +1,1 @@
-"""Synthetic scenes and trajectory metrics (numpy)."""
+"""Synthetic scenes, trajectory metrics and KITTI IO (numpy)."""

@@ -278,11 +278,11 @@ def test_converted_frontend_builds_the_same_track_store(jax_run):
 
 @pytest.mark.parametrize("use_native", [True, False])
 def test_port_track_store_equals_jax(jax_run, use_native, tmp_path):
-    """The port's TrackStore (numpy chaining only) equals the JAX
-    package's, built natively or in numpy, array for array; its queries
-    and its npz agree too."""
+    """The port's TrackStore equals the JAX package's, both built by their
+    own native runtime (C++ chaining) or both in numpy, array for array;
+    its queries and its npz agree too."""
     _, res = jax_run
-    db = TrackStore.from_frontend(res.frontend)
+    db = TrackStore.from_frontend(res.frontend, use_native=use_native)
     dj = JTrackStore.from_frontend(res.frontend, use_native=use_native)
     for f in dataclasses.fields(dj):
         a, b = getattr(db, f.name), getattr(dj, f.name)

@@ -156,9 +156,7 @@ def test_port_scene_generator():
     assert L.dtype == np.float32 and 0.0 <= L.min() and L.max() <= 1.0
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"cache_dir": "x"}, {"mesh": object()}, {"overlap": True},
-    {"image_hw": (96, 160)}])
+@pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"overlap": True}])
 def test_unported_options_raise(kwargs):
     imgs = np.zeros((2, 96, 160), np.float32)
     with pytest.raises(NotImplementedError):
@@ -213,15 +211,32 @@ res = pipeline.run_pipeline(L, R, scene.calib, cfg, verbose=False,
                             device="cpu")
 pipeline.evaluate(res, scene.T_w2c)
 assert np.isfinite(res.T_frontend).all()
+
+# the disk path: KITTI layout, native runtime, prefetcher, stage cache
+import tempfile
+from pathlib import Path
+from slam_tpu_torch import runtime
+from slam_tpu_torch.utils import kitti
+u8 = (np.clip(L, 0, 1) * 255).astype(np.uint8)
+with tempfile.TemporaryDirectory() as tmp:
+    paths = kitti.write_kitti_sequence(tmp, "00", u8, u8, scene.calib)
+    lp = sorted(paths.left_dir.glob("*.png"))
+    for _ in range(2):
+        res = pipeline.run_pipeline(lp, lp, scene.calib, cfg, verbose=False,
+                                    cache_dir=Path(tmp) / "cache",
+                                    device="cpu")
+    assert runtime.available() and len(res.frontend.desc[[0, 5]]) == 2
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "slam_tpu")))
 """
 
 
 def test_port_never_imports_jax():
-    """The port's whole slice, on a tiny scene, in a fresh interpreter:
-    afterwards no module of JAX nor any module of the JAX package
-    (``slam_tpu`` or ``slam_tpu.*``) is loaded."""
+    """The port's whole slice, on a tiny scene, in a fresh interpreter, in
+    memory and from PNG files on disk (KITTI IO, the native runtime, the
+    prefetcher, the stage cache, a checkpoint resume): afterwards no
+    module of JAX nor any module of the JAX package (``slam_tpu`` or
+    ``slam_tpu.*``) is loaded."""
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
     out = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=REPO,
                          env=env, capture_output=True, text=True,
@@ -254,6 +269,9 @@ def test_port_sources_import_nothing_of_jax():
     files = sorted((REPO / "slam_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    names = {str(p.relative_to(REPO)) for p in files}
+    assert {"slam_tpu_torch/utils/kitti.py", "slam_tpu_torch/runtime/"
+            "__init__.py", "slam_tpu_torch/parallel/pipeline.py"} <= names
     assert [f for p in files for f in foreign_imports(p)] == []
 
 
