@@ -92,6 +92,22 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      windows in 4 pipelined slices of 4 against one slice of 16, within
      the tolerance below; (f) a 16-frame 370x1226 sequence through the
      (376, 1248) bucket;
+  4g. the CLI on the card, started as users start it: python3 -m
+     slam_tpu_torch --kitti-root <4f's KITTI directory> --seq 00: rc 0, the
+     same closures as 4f's run (a), every stage's ATE under 1 m and within
+     0.01 m of run_pipeline called in this process with the CLI's
+     arguments (the (376, 1248) image bucket), graphs/analysis.json with
+     numbers for every ARTIFACTS entry, and their PNGs where matplotlib is
+     installed (else none, and the note); then --synthetic loop --frames
+     80 (rc 0, >= 1 closure, ATE under 1 m); then utils.analysis.run_analysis
+     in this process on phase 4's result, which launches B2 once per
+     closure and no plain version; then the CLI with
+     CUDA_VISIBLE_DEVICES="", which must exit non-zero naming the card;
+  4h. the scale run at reduced depth and full width: python3 -m
+     slam_tpu_torch.scale_run on a 336-frame 376x1241 clover of radii 10,
+     13, 16, 14.5 m (12000 landmarks, 6 m corridor): rc 0, per-stage walls,
+     >= 1 closure, every stage's ATE under 1 m; a second invocation loads
+     every stage from its artifacts (no stage run, the same ATEs);
   5. with --profile DIR: one more warm run of the main path, and one of
      the AKAZE path, under torch.profiler; wall time, device busy time
      (union of the device events' intervals) and idle share of that one
@@ -788,7 +804,7 @@ def drive_path(pipeline, ck, L, R, scene, cfg, required, tag, card,
         f"{report['num_pose_failures']}; launches {launches} ({card})")
     return {"launches": launches, "plain": plain, "ates": ates, "timings": t,
             "closures": [(c.frame_i, c.frame_j) for c in res.closures],
-            "windows": res.bundles.poses.shape[0]}
+            "windows": res.bundles.poses.shape[0], "result": res}
 
 
 def u8(x: np.ndarray) -> np.ndarray:
@@ -829,8 +845,9 @@ def same_frontend(a, b, label: str, frames=None) -> None:
 SLICE_TOL = {"poses": 2e-4, "cost": 1e-4}
 
 
-def disk_phase(pipeline, ck, L, R, scene, cfg, batch, card, tmp) -> None:
-    """Phase 4f, the disk path (see the module docstring)."""
+def disk_phase(pipeline, ck, L, R, scene, cfg, batch, card, tmp) -> dict:
+    """Phase 4f, the disk path (see the module docstring). Returns run (a)'s
+    closure frame pairs and ATEs."""
     import dataclasses
 
     from slam_tpu_torch import runtime
@@ -1048,6 +1065,166 @@ def disk_phase(pipeline, ck, L, R, scene, cfg, batch, card, tmp) -> None:
         + ", ".join(f"{k} {v:.3f} s" for k, v in r3.timings.items())
         + f"; frontend ATE {ate:.4f} m; decoded frames equal pad_to_bucket "
         f"of the written ones ({card})")
+    return {"closures": [(c.frame_i, c.frame_j) for c in r1.closures],
+            "ates": ates}
+
+
+REPO = Path(__file__).resolve().parent
+STAGE_ATES = ("frontend", "bundles_kf", "pose_graph_kf", "pose_graph_lc_kf")
+
+
+def run_module(args, label: str, env=None, timeout: int = 600):
+    """``python3 -m <args>`` from the repository's root, as a user runs it;
+    (completed process, wall seconds)."""
+    env = dict(os.environ if env is None else env, PYTHONPATH=str(REPO))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    return proc, time.perf_counter() - t0
+
+
+def require_rc0(proc, label: str) -> None:
+    if proc.returncode != 0:
+        fail(f"{label}: exit {proc.returncode}\n{proc.stdout[-3000:]}\n"
+             f"{proc.stderr[-3000:]}")
+
+
+def stage_ates(report: dict, label: str) -> dict:
+    """Every stage's ATE of an evaluate() report; fails unless each is
+    finite and under 1 m."""
+    ates = {k: report[k]["ate_rmse_m"] for k in STAGE_ATES if k in report}
+    if not ates or not all(np.isfinite(v) and v < 1.0 for v in ates.values()):
+        fail(f"{label}: ATE m {ates} (limit 1.0 m)")
+    return ates
+
+
+def cli_phase(pipeline, ck, main_res, scene, L, disk, cfg, card, tmp) -> None:
+    """Phase 4g, the CLI on the card (see the module docstring)."""
+    import importlib.util
+
+    from slam_tpu_torch.models import loop_closure
+    from slam_tpu_torch.utils import analysis, kitti
+
+    drawn = importlib.util.find_spec("matplotlib") is not None
+    root, out = tmp / "kitti", tmp / "cli"
+    proc, wall = run_module(["slam_tpu_torch", "--kitti-root", str(root),
+                             "--seq", "00", "--out", str(out)], "cli")
+    require_rc0(proc, "cli (KITTI)")
+    seq = out / "00"
+    report = json.loads((seq / "report.json").read_text())
+    ates = stage_ates(report, "cli (KITTI)")
+    closures = [(c.frame_i, c.frame_j) for c in
+                loop_closure.load_closures(seq / "cache" / "closures.npz")]
+    if closures != disk["closures"] or report["num_closures"] != len(closures):
+        fail(f"cli (KITTI): closures {closures} ({report['num_closures']} in "
+             f"report.json), phase 4f {disk['closures']}")
+    # the CLI pads every sequence to its image bucket (376, 1248): the same
+    # call in this process is what its numbers must equal
+    paths = kitti.KittiPaths(root=root, sequence="00")
+    lp = sorted(str(p) for p in paths.left_dir.glob("*.png"))
+    rp = sorted(str(p) for p in paths.right_dir.glob("*.png"))
+    bucket = kitti.bucket_for([HW])
+    same = pipeline.evaluate(pipeline.run_pipeline(
+        lp, rp, kitti.calib_vector(paths), cfg, image_hw=bucket,
+        verbose=False, device="cuda"), kitti.read_ground_truth(paths))
+    d_ate = {k: abs(v - same[k]["ate_rmse_m"]) for k, v in ates.items()}
+    d_4f = {k: abs(v - disk["ates"][k]) for k, v in ates.items()}
+    if set(ates) != set(disk["ates"]) or max(d_ate.values()) > 0.01:
+        fail(f"cli (KITTI): ATE {ates} vs run_pipeline in this process "
+             f"{ {k: same[k]['ate_rmse_m'] for k in ates} } (limit 0.01 m "
+             f"apart)")
+    an = json.loads((seq / "graphs" / "analysis.json").read_text())
+    want = [a for a in analysis.ARTIFACTS
+            if closures or "poseGraph_LC" not in a]
+    missing = [a for a in want if not an["artifacts"].get(a, {}).get("series")]
+    pngs = sorted(p.name for p in (seq / "graphs").glob("*.png"))
+    if missing or (drawn and any(f"{a}.png" not in pngs for a in want)) or (
+            not drawn and (pngs or an["plots"] != analysis.NO_MATPLOTLIB)):
+        fail(f"cli (KITTI): analysis artifacts without numbers {missing}, "
+             f"PNGs {pngs}, plots {an['plots']!r}")
+    log(f"[cli] python3 -m slam_tpu_torch --kitti-root <4f's> --seq 00: rc 0 "
+        f"in {wall:.1f} s; closures {closures} as in phase 4f; ATE m "
+        f"{json.dumps(ates)}, within {max(d_ate.values()):.2e} m of "
+        f"run_pipeline at bucket {bucket} in this process and "
+        f"{max(d_4f.values()):.4f} m of phase 4f's (376, 1241) run; analysis: "
+        f"{len(want)} artifacts with numbers, {len(pngs)} PNGs, plots "
+        f"{an['plots']!r} ({card})")
+
+    proc, wall = run_module(["slam_tpu_torch", "--synthetic", "loop",
+                             "--frames", "80", "--out", str(tmp / "syn")],
+                            "cli synthetic")
+    require_rc0(proc, "cli (synthetic)")
+    report = json.loads((tmp / "syn" / "synthetic" / "report.json")
+                        .read_text())
+    ates = stage_ates(report, "cli (synthetic)")
+    if report["num_closures"] < 1:
+        fail("cli (synthetic): no loop closure on the loop scene")
+    log(f"[cli] python3 -m slam_tpu_torch --synthetic loop --frames 80: rc 0 "
+        f"in {wall:.1f} s; {report['num_closures']} closure(s); ATE m "
+        f"{json.dumps(ates)}; stages "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in report["timings_s"].items())
+        + f" ({card})")
+
+    # the analysis in this process, on phase 4's result: B2 once per closure
+    ck.reset_counters()
+    t0 = time.perf_counter()
+    an = analysis.run_analysis(main_res, scene.T_w2c, tmp / "analysis",
+                               images_left=L)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_cl = len(main_res.closures)
+    launches, plain = dict(ck.LAUNCHES), dict(ck.PLAIN_CALLS)
+    if launches["mutual_nearest"] != n_cl or any(plain.values()):
+        fail(f"analysis: launches {launches} for {n_cl} closure(s), plain "
+             f"calls {plain}")
+    log(f"[cli] analysis.run_analysis on phase 4's result in {wall:.2f} s: "
+        f"launches {launches} ({n_cl} closure(s): B2 once each), no plain "
+        f"call; loop matches {json.dumps(an.get('loop_match'))} ({card})")
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc, _ = run_module(["slam_tpu_torch", "--synthetic", "loop", "--frames",
+                          "8", "--out", str(tmp / "nocard")], "cli no card",
+                         env=env)
+    if proc.returncode == 0 or "no CUDA card" not in proc.stderr:
+        fail(f"cli without a card: exit {proc.returncode}, stderr "
+             f"{proc.stderr[-500:]!r}")
+    log(f"[cli] without a card (CUDA_VISIBLE_DEVICES=''): exit "
+        f"{proc.returncode}, '{proc.stderr.strip().splitlines()[-1]}'")
+
+
+# phase 4h: the clover at reduced depth and full width. 336 frames at ~1 m
+# a frame drive four laps of radii 10-16 m, each back through the origin
+SCALE_ARGS = ("--frames", "336", "--radii", "10", "13", "16", "14.5",
+              "--landmarks", "12000", "--corridor", "6")
+
+
+def scale_phase(card, tmp) -> None:
+    """Phase 4h, the scale run (see the module docstring)."""
+    out = tmp / "scale"
+    proc, wall = run_module(["slam_tpu_torch.scale_run", *SCALE_ARGS,
+                             "--out", str(out)], "scale run")
+    require_rc0(proc, "scale run")
+    report = json.loads((out / "report.json").read_text())
+    ates = stage_ates(report, "scale run")
+    if report["num_closures"] < 1:
+        fail(f"scale run: no closure; revisits {report['revisits']}")
+    log(f"[scale] python3 -m slam_tpu_torch.scale_run {' '.join(SCALE_ARGS)} "
+        f"{tuple(HW)}: rc 0 in {wall:.1f} s; stages "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in report["timings_s"].items())
+        + f"; {report['num_keyframes']} keyframes, {report['num_closures']} "
+        f"closure(s), per revisit event {json.dumps(report['revisits'])}; "
+        f"ATE m {json.dumps(ates)}; pose failures "
+        f"{report['num_pose_failures']} ({card})")
+    proc, wall = run_module(["slam_tpu_torch.scale_run", *SCALE_ARGS,
+                             "--out", str(out)], "scale run again")
+    require_rc0(proc, "scale run again")
+    again = json.loads((out / "report.json").read_text())
+    if again["stages_run"] or again["timings_s"] != report["timings_s"]:
+        fail(f"scale run again: stages run {again['stages_run']}")
+    if stage_ates(again, "scale run again") != ates:
+        fail("scale run again: other ATEs from the artifacts")
+    log(f"[scale] second invocation: every stage loaded from its artifacts "
+        f"in {wall:.1f} s, the same ATEs ({card})")
 
 
 def main(argv=None) -> int:
@@ -1489,7 +1666,13 @@ def main(argv=None) -> int:
 
     # ---- 4f. the disk path ---------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
-        disk_phase(pipeline, ck, L, R, scene, cfg, batch, card, Path(tmp))
+        disk = disk_phase(pipeline, ck, L, R, scene, cfg, batch, card,
+                          Path(tmp))
+        # ---- 4g. the CLI on 4f's KITTI directory, and the analysis -------
+        cli_phase(pipeline, ck, main_path["result"], scene, L, disk, cfg,
+                  card, Path(tmp))
+        # ---- 4h. the scale run ------------------------------------------
+        scale_phase(card, Path(tmp))
 
     # ---- 5. profile (optional) ---------------------------------------------
     if args.profile:

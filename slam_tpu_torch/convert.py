@@ -11,11 +11,18 @@ never import JAX: a JAX ``DescriptorBank`` is read through its
 
 from __future__ import annotations
 
+import dataclasses
+import tempfile
+from pathlib import Path
+
 import numpy as np
 import torch
 
 from .models.bundle import BundleResult
 from .models.frontend import DescriptorBank, FrontendResult
+from .models.loop_closure import Closure
+from .models.pose_graph import PoseGraph
+from .models.trackstore import TrackStore
 from .ops.cuda_kernels import resolve_device
 
 _FRONTEND_ARRAYS = ("xy", "valid", "links", "link_valid", "match_prev",
@@ -52,3 +59,38 @@ def bundle_result(src) -> BundleResult:
     return BundleResult(keyframes=[int(k) for k in _get(src, "keyframes")],
                         obs_dropped=int(_get(src, "obs_dropped")),
                         obs_total=int(_get(src, "obs_total")), **arrays)
+
+
+def track_store(src) -> TrackStore:
+    """A port TrackStore from the JAX package's (the same numpy fields)."""
+    return TrackStore(**{f.name: _get(src, f.name)
+                         for f in dataclasses.fields(TrackStore)})
+
+
+def pipeline_result(src, device="cuda"):
+    """A port PipelineResult from the JAX package's: every stage through
+    the converters above, the two pose graphs through the npz format both
+    packages share (written by the JAX graph's own ``save``, read by the
+    port's ``PoseGraph.load`` onto ``device``), the closures field by
+    field."""
+    from .pipeline import PipelineResult
+
+    device = resolve_device(device)
+    graphs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, g in enumerate((_get(src, "pose_graph"),
+                               _get(src, "pose_graph_pre_lc"))):
+            path = Path(tmp) / f"graph{k}.npz"
+            g.save(path)
+            graphs.append(PoseGraph.load(path, device=device))
+    closures = [Closure(**{f.name: _get(c, f.name)
+                           for f in dataclasses.fields(Closure)})
+                for c in _get(src, "closures")]
+    calib = _get(src, "calib")
+    return PipelineResult(
+        frontend=frontend_result(_get(src, "frontend"), device=device),
+        db=track_store(_get(src, "db")),
+        bundles=bundle_result(_get(src, "bundles")),
+        pose_graph=graphs[0], pose_graph_pre_lc=graphs[1], closures=closures,
+        timings=dict(_get(src, "timings")),
+        calib=None if calib is None else np.asarray(calib, np.float32))

@@ -391,7 +391,12 @@ int32_t loader_next(void* handle, uint8_t* out_left, uint8_t* out_right) {
 
 void loader_destroy(void* handle) {
   Loader* L = (Loader*)handle;
-  L->stop.store(true);
+  {
+    // set under the lock: a thread that has just found its wait predicate
+    // false is then already blocked, so the notifications reach it
+    std::lock_guard<std::mutex> lk(L->mu);
+    L->stop.store(true);
+  }
   L->cv_space.notify_all();
   L->cv_ready.notify_all();
   if (L->worker.joinable()) L->worker.join();

@@ -175,19 +175,38 @@ def test_unported_detectors_raise():
                               verbose=False, device="cpu")
 
 
-@pytest.mark.parametrize("entry", ["run_pipeline", "run_frontend"])
-def test_default_device_is_the_card(entry, monkeypatch):
-    """Called without a device, the stage entry points run on the card;
-    with no card they raise instead of quietly taking the plain versions
-    on the CPU."""
-    from slam_tpu_torch.models import frontend
+@pytest.mark.parametrize("entry", ["run_pipeline", "run_frontend", "cli",
+                                   "scale_run", "pnp_trajectory_from_db"])
+def test_default_device_is_the_card(entry, monkeypatch, tmp_path):
+    """Called without a device (the CLI and the scale run without
+    --cpu), the entry points run on the card; with no card they raise
+    instead of quietly taking the plain versions on the CPU."""
+    import types
+
+    from slam_tpu_torch import scale_run
+    from slam_tpu_torch.__main__ import main as cli_main
+    from slam_tpu_torch.models import db_odometry, frontend
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    fn = {"run_pipeline": pipeline.run_pipeline,
-          "run_frontend": frontend.run_frontend}[entry]
     imgs = np.zeros((2, 96, 160), np.float32)
+    db = types.SimpleNamespace(track_ids=np.zeros((3, 4), np.int32),
+                               links=np.ones((3, 4, 3), np.float32),
+                               num_frames=3)
+    out = ["--out", str(tmp_path / "out")]
+    call = {
+        "run_pipeline": lambda: pipeline.run_pipeline(
+            imgs, imgs, synthetic.KITTI_CALIB, CFG),
+        "run_frontend": lambda: frontend.run_frontend(
+            imgs, imgs, synthetic.KITTI_CALIB, CFG),
+        "cli": lambda: cli_main(["--synthetic", "loop", "--frames", "4"]
+                                + out),
+        "scale_run": lambda: scale_run.main(["--frames", "4"] + out),
+        "pnp_trajectory_from_db": lambda: db_odometry.pnp_trajectory_from_db(
+            db, synthetic.KITTI_CALIB),
+    }[entry]
     with pytest.raises(RuntimeError, match="no CUDA card"):
-        fn(imgs, imgs, synthetic.KITTI_CALIB, CFG)
+        call()
+    assert not (tmp_path / "out").exists()
 
 
 _NO_JAX_SCRIPT = """
@@ -219,13 +238,26 @@ from slam_tpu_torch import runtime
 from slam_tpu_torch.utils import kitti
 u8 = (np.clip(L, 0, 1) * 255).astype(np.uint8)
 with tempfile.TemporaryDirectory() as tmp:
-    paths = kitti.write_kitti_sequence(tmp, "00", u8, u8, scene.calib)
+    paths = kitti.write_kitti_sequence(tmp, "00", u8, u8, scene.calib,
+                                       scene.T_w2c)
     lp = sorted(paths.left_dir.glob("*.png"))
     for _ in range(2):
         res = pipeline.run_pipeline(lp, lp, scene.calib, cfg, verbose=False,
                                     cache_dir=Path(tmp) / "cache",
                                     device="cpu")
     assert runtime.available() and len(res.frontend.desc[[0, 5]]) == 2
+
+    # the CLI on the CPU from the same PNGs, with the analysis suite, and
+    # every other module of this slice
+    from slam_tpu_torch.__main__ import main
+    cfg.save(Path(tmp) / "cfg.json")
+    assert main(["--kitti-root", tmp, "--seq", "00", "--cpu", "--config",
+                 str(Path(tmp) / "cfg.json"), "--out",
+                 str(Path(tmp) / "cli")]) == 0
+    assert (Path(tmp) / "cli" / "00" / "graphs" / "analysis.json").exists()
+import slam_tpu_torch.scale_run, slam_tpu_torch.runtime.tsan
+import slam_tpu_torch.models.db_odometry, slam_tpu_torch.models.covgraph
+import slam_tpu_torch.ops.triangulation, slam_tpu_torch.convert
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "slam_tpu")))
 """
@@ -234,7 +266,8 @@ print(sorted(m for m in sys.modules
 def test_port_never_imports_jax():
     """The port's whole slice, on a tiny scene, in a fresh interpreter, in
     memory and from PNG files on disk (KITTI IO, the native runtime, the
-    prefetcher, the stage cache, a checkpoint resume): afterwards no
+    prefetcher, the stage cache, a checkpoint resume), then the CLI on the
+    CPU with its analysis, and every other module imported: afterwards no
     module of JAX nor any module of the JAX package (``slam_tpu`` or
     ``slam_tpu.*``) is loaded."""
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
@@ -271,7 +304,14 @@ def test_port_sources_import_nothing_of_jax():
     assert len(files) > 20
     names = {str(p.relative_to(REPO)) for p in files}
     assert {"slam_tpu_torch/utils/kitti.py", "slam_tpu_torch/runtime/"
-            "__init__.py", "slam_tpu_torch/parallel/pipeline.py"} <= names
+            "__init__.py", "slam_tpu_torch/parallel/pipeline.py",
+            "slam_tpu_torch/__main__.py", "slam_tpu_torch/scale_run.py",
+            "slam_tpu_torch/utils/analysis.py",
+            "slam_tpu_torch/utils/profiling.py",
+            "slam_tpu_torch/runtime/tsan.py",
+            "slam_tpu_torch/models/db_odometry.py",
+            "slam_tpu_torch/models/covgraph.py",
+            "slam_tpu_torch/ops/triangulation.py"} <= names
     assert [f for p in files for f in foreign_imports(p)] == []
 
 
