@@ -19,7 +19,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
   2b. kernels B4 (harris_response) and B3 (orientation_maps), B1's phases
      alone, against their plain versions with B1's tolerances: B4 at the
      frontend's shape, B3 at both AKAZE octave shapes, (64, 376, 1241) and
-     (64, 188, 621), and at (2, 100, 333); median times;
+     (64, 188, 621), at (2, 100, 333), and at SIFT's first and last
+     octave bases of the frontend chunk, (64, 752, 2482) (the x2-upsampled
+     '-1' octave) and (64, 94, 311); median times, and the bound at SIFT's
+     shapes;
   2c. kernel B5 (akaze_octave) against its plain version at both octave
      shapes, on the AKAZE path's own inputs (blurred rendered frames,
      their per-frame contrast k), and at (2, 47, 156), KITTI's octave 3,
@@ -108,18 +111,45 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      13, 16, 14.5 m (12000 landmarks, 6 m corridor): rc 0, per-stage walls,
      >= 1 closure, every stage's ATE under 1 m; a second invocation loads
      every stage from its artifacts (no stage run, the same ATEs);
-  5. with --profile DIR: one more warm run of the main path, and one of
-     the AKAZE path, under torch.profiler; wall time, device busy time
-     (union of the device events' intervals) and idle share of that one
-     run, per stage and in all, and device time by kernel, into
-     DIR/profile.json and DIR/profile_akaze.json.
+  4i. the SIFT path: run_pipeline + evaluate under SlamConfig(features=
+     FeatureConfig(detector="sift")) with drive_path's gates (B3, B2 and B6
+     launched, no plain version run, >= 1 closure, every ATE under 1 m;
+     `[path sift]` lines), then run_frontend once more for its peak device
+     memory (one batch of 64 images through four octaves, the first at
+     752x2482), and chunk 0's descriptors recomputed as DescriptorBank
+     does after a resume, equal bit for bit;
+  4j. the ORB path: the same under FeatureConfig(detector="orb") and
+     MatchConfig(norm="hamming"), B2 on the Hamming calls and B6 launched
+     (`[path orb]` lines);
+  4k. the sparse pose graph (`[pg sparse]` lines): (a) a 2560-node stiff
+     chain with loop edges (2, 2558), (100, 2000), (500, 2400), built in
+     numpy here (stiff_loop_graph, the JAX tests' construction), through
+     PoseGraph above SPARSE_NODE_THRESHOLD on the card: optimize(iters=15)
+     moves the nodes (> 0.05 m) to a finite cost, gate_distances of 121
+     pairs 499 apart finite and positive, marginal_logdets growing along
+     the chain, and selected_blocks within 1e-5 of the dense float64
+     inverse of the same whitened Hessian formed on the card (refined by
+     one Newton step, its change printed; relative to
+     each block's largest entry; every diagonal block but the gauge's,
+     the gated pairs' and the loop edges' cross blocks), the seconds of
+     each call; (b) phase 4's main path with SPARSE_NODE_THRESHOLD patched
+     to 8: the sparse gate and optimize called, phase 4's closures, every
+     ATE within 0.01 m of phase 4's;
+  5. with --profile DIR: one more warm run of the main path, and one
+     each of the AKAZE, the SIFT and the ORB path, under torch.profiler;
+     wall time, device busy time (union of the device events' intervals)
+     and idle share of that one run, per stage and in all, and device
+     time by kernel, into DIR/profile.json, profile_akaze.json,
+     profile_sift.json and profile_orb.json.
 The second line from the end is the kernels' JSON record (after a full
 run only): per kernel its launches on the path that runs it, max abs
 error against its plain version, its time, the plain version's, the
 least time the card could take (bytes over 3.35 TB/s or operations over
 the peak rate of their type, the larger) and one PyTorch call computing
-the same function where there is one. The last line is the device
-record. Nothing here imports JAX or any module of the JAX package.
+the same function where there is one; B3's also its launches on the
+SIFT path and its times at SIFT's octave shapes. The last line is the
+device record. Nothing here imports JAX or any module of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -336,6 +366,20 @@ def check_b5(ck, imgs: torch.Tensor, k: torch.Tensor, sigma: float,
         f"err {L_err:.3e} (scale {L_scale:.3e}), resp err {r_err:.3e} (scale "
         f"{r_scale:.3e}), nms mismatches {n_mism}")
     return max(L_err, r_err), L_p
+
+
+def sift_octave_bases(sift, features, frames):
+    """(label, images) of SIFT's first and last octave bases of ``frames``
+    at the frontend's four octaves: the x2-upsampled, pre-blurred image,
+    and the third decimation of gauss[intervals] below it."""
+    pre = float((sift.SIGMA0 ** 2 - 1.0) ** 0.5)
+    level = features.gaussian_blur(sift.upsample2(frames), pre,
+                                   sift._blur_radius(pre))
+    yield "SIFT octave -1", level
+    for _ in range(3):
+        level = sift.gaussian_pyramid_octave(level)[sift.INTERVALS][
+            ..., ::2, ::2].contiguous()
+    yield "SIFT octave 2", level
 
 
 STEREO_SHIFT = ((-100.0, -2.0), (-1.5, 1.5))
@@ -1227,14 +1271,232 @@ def scale_phase(card, tmp) -> None:
         f"in {wall:.1f} s, the same ATEs ({card})")
 
 
+def detector_phase(pipeline, ck, frontend, L, R, scene, cfg, required, tag,
+                   card) -> dict:
+    """Phases 4i and 4j: the path under ``cfg`` (drive_path's gates), the
+    frontend's peak device memory (one more run_frontend, the peak reset
+    just before it), and the first chunk's descriptors recomputed
+    (DescriptorBank's resume path) equal bit for bit to that run's."""
+    path = drive_path(pipeline, ck, L, R, scene, cfg, required, tag, card)
+    chunk = cfg.runtime.chunk_frames
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fe = frontend.run_frontend(L, R, scene.calib, cfg, device="cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    first = np.arange(chunk)
+    rec = frontend.recompute_descriptors(
+        torch.from_numpy(L[:chunk]).cuda(), torch.from_numpy(R[:chunk]).cuda(),
+        cfg)
+    if not torch.equal(rec, fe.desc.gather(first)):
+        fail(f"{tag}: recomputed descriptors of chunk 0 differ from the run's")
+    log(f"[{tag}] frontend peak device memory {peak / 2**30:.2f} GiB "
+        f"(allocated before it {base / 2**30:.2f} GiB; detection of "
+        f"{2 * chunk} images {HW} at once); chunk 0's descriptors recomputed "
+        f"equal bit for bit ({card})")
+    return dict(path, peak_gib=peak / 2**30)
+
+
+# phase 4k: the sparse pose graph at 2560 keyframes (> SPARSE_NODE_THRESHOLD)
+PG_NODES = 2560
+PG_LOOPS = ((100, 2000), (500, 2400))
+
+
+def stiff_loop_graph(N: int, device: str, loops=PG_LOOPS, seed: int = 0):
+    """A port PoseGraph of N keyframes: a ~2 m-step odometry chain with
+    gentle yaw noise and reference-scale stiff sqrt-information (5e3
+    rotation, 1.5e2 translation rows), built on the host in float64; a loop
+    edge (2, N - 2) whose measurement disagrees with the chain by 0.5 m;
+    and one loop edge per pair of ``loops`` off by 0.05 m. The same
+    construction as the JAX package's tests (make_stiff_loop_graph,
+    add_loops; tests/test_torch_pg_sparse.py holds the two equal)."""
+    from slam_tpu_torch.models.pose_graph import PoseGraph
+
+    rng = np.random.default_rng(seed)
+    nodes = np.zeros((N, 4, 4))
+    nodes[0] = np.eye(4)
+    Z = np.zeros((N - 1, 4, 4))
+    for i, yaw in enumerate(0.002 * rng.standard_normal(N - 1)):
+        c, s_ = np.cos(yaw), np.sin(yaw)
+        Z[i] = [[c, 0.0, s_, 0.0], [0.0, 1.0, 0.0, 0.0], [-s_, 0.0, c, 2.0],
+                [0.0, 0.0, 0.0, 1.0]]
+        nodes[i + 1] = Z[i] @ nodes[i]
+    si = np.eye(6, dtype=np.float32)
+    si[:3, :3] *= 5e3
+    si[3:, 3:] *= 1.5e2
+    pg = PoseGraph(nodes=nodes.astype(np.float32), keyframes=list(range(N)),
+                   e_i=np.arange(N - 1, dtype=np.int32),
+                   e_j=np.arange(1, N, dtype=np.int32),
+                   Z=Z.astype(np.float32),
+                   sqrt_info=np.tile(si, (N - 1, 1, 1)),
+                   is_loop=np.zeros(N - 1, bool), device=device)
+    i, j = 2, N - 2
+    T_mis = np.eye(4)
+    T_mis[0, 3] = 0.5
+    rel = (pg.nodes[j].astype(np.float64)
+           @ np.linalg.inv(pg.nodes[i].astype(np.float64)))
+    pg.add_edge(i, j, (rel @ T_mis).astype(np.float32), np.eye(6) * 1e-4)
+    for i, j in loops:
+        rel = pg.nodes[j] @ np.linalg.inv(pg.nodes[i])
+        T_mis = np.eye(4, dtype=np.float32)
+        T_mis[0, 3] = 0.05
+        pg.add_edge(i, j, rel @ T_mis, np.eye(6) * 1e-4)
+    return pg
+
+
+def dense_cov64(pg_sparse, args):
+    """The dense float64 inverse of the sparse path's whitened Hessian
+    (the same Jacobians, the chain and the loop edges assembled into
+    (6N, 6N), the gauge rows the identity), Jacobi-scaled for the
+    inversion, refined by one Newton step X += X (I - H X), unscaled
+    after, the gauge rows zeroed: (N, 6, N, 6), and the step's largest
+    change relative to max |X|."""
+    nodes, Z_c, si_c, li, lj, Z_l, si_l, lv, n = args
+    X, Zc_inv, si_c, Zl_inv, si_l, v = pg_sparse._inputs64(
+        nodes, Z_c, si_c, Z_l, si_l, lv)
+    N = X.shape[0]
+    m, _ = pg_sparse._node_masks(N, n, X)
+    _, Ji, Jj = pg_sparse._chain_jacobians(X, Zc_inv, si_c, m)
+    _, Jil, Jjl = pg_sparse._loop_jacobians(X, li, lj, Zl_inv, si_l, v, m)
+    k = torch.arange(N - 1, device=X.device)
+    H = torch.zeros((N, N, 6, 6), dtype=X.dtype, device=X.device)
+    for a, b, Ja, Jb in ((k, k + 1, Ji, Jj), (li, lj, Jil, Jjl)):
+        for r, c, Jr, Jc in ((a, a, Ja, Ja), (b, b, Jb, Jb), (a, b, Ja, Jb),
+                             (b, a, Jb, Ja)):
+            H.index_put_((r, c), Jr.transpose(1, 2) @ Jc, accumulate=True)
+    H = H.permute(0, 2, 1, 3).reshape(6 * N, 6 * N)
+    mask = m.repeat_interleave(6)
+    H = H + torch.diag(1.0 - mask)
+    s = torch.rsqrt(torch.diagonal(H))
+    H = H * s[:, None] * s[None, :]
+    C = torch.linalg.inv(H)
+    R = -(H @ C)
+    R.diagonal().add_(1.0)
+    D = C @ R
+    step = float(D.abs().max() / C.abs().max())
+    C += D
+    del R, D
+    C = C * (s * mask)[:, None] * (s * mask)[None, :]
+    return C.reshape(N, 6, N, 6), step
+
+
+def sparse_pg_phase(pipeline, ck, L, R, scene, cfg, main_path, card) -> dict:
+    """Phase 4k (see the module docstring). Returns the seconds of each
+    call at PG_NODES."""
+    from slam_tpu_torch.models import pose_graph
+    from slam_tpu_torch.ops import pg_sparse
+
+    N = PG_NODES
+    pg = stiff_loop_graph(N, "cuda")
+    if not pg._use_sparse():
+        fail(f"pg sparse: {N} nodes under SPARSE_NODE_THRESHOLD")
+    secs = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    before = pg.nodes.copy()
+    cost = timed("optimize", lambda: pg.optimize(iters=15))
+    shift = float(np.abs(pg.nodes[:, :3, 3] - before[:, :3, 3]).max())
+    if not (np.isfinite(cost) and shift > 0.05):
+        fail(f"pg sparse: optimize cost {cost}, largest node shift {shift} m")
+    pi = np.arange(0, N - 500, 17)
+    pj = pi + 499
+    d = timed("gate", lambda: pg.gate_distances(pi, pj))
+    if not (np.isfinite(d).all() and (d > 0).all()):
+        fail(f"pg sparse: gate distances {d[~(np.isfinite(d) & (d > 0))]}")
+    loc, rot = timed("logdets", pg.marginal_logdets)
+    if not (loc.shape == (N,) and np.isfinite(loc).all()
+            and np.median(loc[-200:]) > np.median(loc[1:201])):
+        fail(f"pg sparse: log-dets {loc[:3]} ... {loc[-3:]}")
+    # selected blocks against the dense float64 inverse on the card: every
+    # diagonal block but the gauge's (zero in both), the cross blocks of
+    # the gated pairs (both orders) and of the loop edges
+    args = pg._sparse_arrays()
+    a, b = pi[pi > 0], pj[pi > 0]
+    qi = torch.as_tensor(np.concatenate([a, b, [2, 100, 500]]),
+                         device="cuda")
+    qj = torch.as_tensor(np.concatenate([b, a, [N - 2, 2000, 2400]]),
+                         device="cuda")
+    Cdiag, Cq = timed("selected blocks", lambda: pg_sparse.selected_blocks(
+        *args, qi, qj))
+    C, step = timed("dense float64 inverse", lambda: dense_cov64(pg_sparse,
+                                                                 args))
+    k = torch.arange(1, N, device="cuda")
+    pairs = ((Cdiag[1:].double(), C[k, :, k, :]),
+             (Cq.double(), C[qi, :, qj, :]))
+    err = max(float(((a - b).abs().amax((1, 2))
+                     / b.abs().amax((1, 2))).max()) for a, b in pairs)
+    del C
+    if not err <= 1e-5:
+        fail(f"pg sparse: selected blocks {err:.3e} off the dense float64 "
+             f"inverse, relative to each block's largest entry (limit 1e-5)")
+    log(f"[pg sparse] {N} nodes, {int(pg.is_loop.sum())} loop edges: "
+        f"optimize(iters=15) {secs['optimize']:.3f} s "
+        f"({secs['optimize'] / 15:.3f} s per LM iteration), cost {cost:.4f}, "
+        f"largest node shift {shift:.3f} m; gate_distances of {pi.size} pairs "
+        f"{secs['gate']:.3f} s; marginal_logdets {secs['logdets']:.3f} s "
+        f"(median log det loc nodes 1-200 {np.median(loc[1:201]):.2f}, last "
+        f"200 {np.median(loc[-200:]):.2f}); selected_blocks "
+        f"{secs['selected blocks']:.3f} s, {N - 1} diagonal and {qi.numel()} "
+        f"cross blocks within {err:.2e} of the dense float64 inverse "
+        f"({secs['dense float64 inverse']:.3f} s, one Newton step changed it "
+        f"by {step:.1e} of its largest entry) relative to each block's "
+        f"largest entry ({card})")
+
+    # (b) the main path with every pose-graph query on the sparse path
+    calls = collections.Counter()
+    saved = {n: getattr(pg_sparse, n) for n in (
+        "optimize_sparse", "gate_matrix_sparse", "marginal_logdets_sparse")}
+
+    def counted(name):
+        def call(*a, **kw):
+            calls[name] += 1
+            return saved[name](*a, **kw)
+        return call
+
+    threshold = pose_graph.SPARSE_NODE_THRESHOLD
+    pose_graph.SPARSE_NODE_THRESHOLD = 8
+    for n in saved:
+        setattr(pg_sparse, n, counted(n))
+    try:
+        sp = drive_path(pipeline, ck, L, R, scene, cfg,
+                        ("detect_maps", "mutual_nearest", "cholesky_solve"),
+                        "pg sparse", card, on_reset=calls.clear)
+    finally:
+        pose_graph.SPARSE_NODE_THRESHOLD = threshold
+        for n, fn in saved.items():
+            setattr(pg_sparse, n, fn)
+    if not calls["gate_matrix_sparse"] or not calls["optimize_sparse"]:
+        fail(f"pg sparse (b): sparse calls {dict(calls)}")
+    if sp["closures"] != main_path["closures"]:
+        fail(f"pg sparse (b): closures {sp['closures']}, phase 4 "
+             f"{main_path['closures']}")
+    d_ate = {k: abs(sp["ates"][k] - v) for k, v in main_path["ates"].items()}
+    if set(sp["ates"]) != set(main_path["ates"]) or max(d_ate.values()) > 0.01:
+        fail(f"pg sparse (b): ATE {sp['ates']} vs phase 4 {main_path['ates']}"
+             f" (limit 0.01 m apart)")
+    log(f"[pg sparse] (b) the main path with SPARSE_NODE_THRESHOLD = 8: "
+        f"sparse calls {dict(calls)}; closures {sp['closures']} as in phase "
+        f"4; ATE differences {json.dumps(d_ate)} m ({card})")
+    return secs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (phases 1-3b)")
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="after the paths, profile one more run of the main "
-                         "path and of the AKAZE path and write "
-                         "DIR/profile.json, DIR/profile_akaze.json (phase 5)")
+                         "path and of the AKAZE, SIFT and ORB paths and "
+                         "write DIR/profile.json, DIR/profile_akaze.json, "
+                         "profile_sift.json, profile_orb.json (phase 5)")
     args = ap.parse_args(argv)
 
     # ---- 1. device ----------------------------------------------------------
@@ -1245,7 +1507,7 @@ def main(argv=None) -> int:
     from slam_tpu_torch.config import FeatureConfig, MatchConfig, SlamConfig
     from slam_tpu_torch.models import bundle, frontend, loop_closure
     from slam_tpu_torch.models.trackstore import TrackStore
-    from slam_tpu_torch.ops import akaze, ba, binary, features, se3
+    from slam_tpu_torch.ops import akaze, ba, binary, features, se3, sift
     from slam_tpu_torch.ops import stereo as stereo_ops
     from slam_tpu_torch.ops import cuda_kernels as ck
     from slam_tpu_torch.utils import metrics, synthetic
@@ -1347,6 +1609,22 @@ def main(argv=None) -> int:
         log(f"[B3] {label} {tuple(x.shape)} median of {TIMING_RUNS}: kernel "
             f"{b3_times[label][0]:.3f} ms, plain {b3_times[label][1]:.3f} "
             f"ms ({card})")
+    # SIFT's octave bases of the same chunk: the x2 '-1' octave, and the
+    # last of the four (each decimates gauss[3] of the one before)
+    b3_sift = {}
+    for label, x in sift_octave_bases(sift, features, path):
+        b3_err = max(b3_err, check_b3(ck, x, label))
+        px_x = x.numel()
+        t_k = median_ms(lambda: ck.orientation_maps(x))
+        t_p = median_ms(lambda: ck.orientation_maps_plain(x))
+        b_ms, b_by = bound(4 * px_x * 9, OPS_PER_PIXEL["orientation_maps"]
+                           * px_x)
+        b3_sift[str(tuple(x.shape))] = {"ms": t_k, "plain_ms": t_p,
+                                        "bound_ms": b_ms, "bound_by": b_by}
+        log(f"[B3] {label} {tuple(x.shape)} median of {TIMING_RUNS}: kernel "
+            f"{t_k:.3f} ms, plain {t_p:.3f} ms, bound {b_ms:.3f} ms "
+            f"({b_by}) ({card})")
+        del x
 
     # ---- 2c. kernel B5 ------------------------------------------------------
     # the AKAZE path's own inputs: per-frame contrast of the chunk, octave 0
@@ -1674,11 +1952,29 @@ def main(argv=None) -> int:
         # ---- 4h. the scale run ------------------------------------------
         scale_phase(card, Path(tmp))
 
+    # ---- 4i. the SIFT path --------------------------------------------------
+    cfg_sift = SlamConfig(features=FeatureConfig(detector="sift"))
+    sift_path = detector_phase(
+        pipeline, ck, frontend, L, R, scene, cfg_sift,
+        ("orientation_maps", "mutual_nearest", "cholesky_solve"), "path sift",
+        card)
+    # ---- 4j. the ORB path ---------------------------------------------------
+    cfg_orb = SlamConfig(features=FeatureConfig(detector="orb"),
+                         matching=MatchConfig(norm="hamming"))
+    detector_phase(pipeline, ck, frontend, L, R, scene, cfg_orb,
+                   ("mutual_nearest", "cholesky_solve"), "path orb", card)
+    # ---- 4k. the sparse pose graph ------------------------------------------
+    sparse_pg_phase(pipeline, ck, L, R, scene, cfg, main_path, card)
+
     # ---- 5. profile (optional) ---------------------------------------------
     if args.profile:
         profile_path(pipeline, L, R, scene.calib, cfg, args.profile, card)
         profile_path(pipeline, L, R, scene.calib, cfg_akaze, args.profile,
                      card, "_akaze")
+        profile_path(pipeline, L, R, scene.calib, cfg_sift, args.profile,
+                     card, "_sift")
+        profile_path(pipeline, L, R, scene.calib, cfg_orb, args.profile,
+                     card, "_orb")
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "slam_tpu"))
@@ -1691,6 +1987,9 @@ def main(argv=None) -> int:
         harris_response=b4_launches)
     for k in kernels:
         k["launches"] = counts[k["name"]]
+        if k["name"] == "orientation_maps":
+            k["launches_sift"] = sift_path["launches"]["orientation_maps"]
+            k["at_sift_octaves"] = b3_sift
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

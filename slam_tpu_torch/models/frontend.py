@@ -15,9 +15,11 @@ sequential float32 product of the relative poses (the JAX package uses an
 associative scan; the rounding differs in the last bits).
 
 Detectors: Harris at one level (kernel B1 + gridded top-K), Harris over
-``num_levels`` pyramid levels (B1 at each), and AKAZE (kernels B5 and B3
-at each of ``max(num_levels, 2)`` octaves); ORB and SIFT are not ported
-yet. Under ``MatchConfig(norm="hamming")`` the descriptors are binarized
+``num_levels`` pyramid levels (B1 at each), AKAZE (kernels B5 and B3 at
+each of ``max(num_levels, 2)`` octaves), SIFT (DoG extrema over
+``max(num_levels, 3) + 1`` octaves, the first at twice the resolution,
+B3 at each) and ORB (FAST-9 + steered BRIEF, torch ops). Under
+``MatchConfig(norm="hamming")`` the descriptors are binarized
 to +-1 signs and every matching gate and reported distance is in bits.
 
 Descriptors stay on the device as float16 (F, K, D) chunks in a
@@ -45,8 +47,8 @@ import numpy as np
 import torch
 
 from ..config import SlamConfig
-from ..ops import (akaze, binary, cuda_kernels, features, matching, ransac,
-                   stereo)
+from ..ops import (akaze, binary, cuda_kernels, features, matching, orb,
+                   ransac, sift, stereo)
 
 
 class DescriptorBank:
@@ -197,18 +199,10 @@ def _pair_correspondences(prev_links, prev_link_valid, cur_links,
     return pw, meas, valid
 
 
-def _check_supported(cfg: SlamConfig) -> None:
-    if cfg.features.detector in ("orb", "sift"):
-        raise NotImplementedError(
-            f"the {cfg.features.detector} detector is still to be ported "
-            f"(ROADMAP.md); the port runs harris and akaze")
-
-
 def _detect_describe(imgs: torch.Tensor, cfg: SlamConfig) -> dict:
     """Detection + description of a batch of (F, H, W) images (uint8 or
     float32 in [0, 1]) under ``cfg.features``, binarized under the
     Hamming norm."""
-    _check_supported(cfg)
     if imgs.dtype == torch.uint8:
         imgs = imgs.float() * (1.0 / 255.0)
     imgs = imgs.contiguous()
@@ -217,6 +211,17 @@ def _detect_describe(imgs: torch.Tensor, cfg: SlamConfig) -> dict:
         out = akaze.detect_and_describe_akaze_batch(
             imgs, max_kp=fc.max_kp, octaves=max(fc.num_levels, 2),
             threshold=fc.akaze_threshold)
+    elif fc.detector == "sift":
+        # num_levels counts the octaves from full resolution down; + 1 is
+        # cv2's x2-upsampled '-1' octave
+        out = sift.detect_and_describe_sift_batch(
+            imgs, max_kp=fc.max_kp, octaves=max(fc.num_levels, 3) + 1,
+            contrast=fc.sift_contrast)
+    elif fc.detector == "orb":
+        # already +-1/sqrt(D) bit signs: under the Hamming norm the
+        # binarization below recovers the same bits (unless all are equal)
+        out = orb.detect_and_describe_orb_batch(
+            imgs, max_kp=fc.max_kp, threshold=fc.fast_threshold)
     elif fc.num_levels > 1:
         out = features.detect_and_describe_multiscale_batch(
             imgs, max_kp=fc.max_kp, num_levels=fc.num_levels)
@@ -571,7 +576,6 @@ def run_frames(frames, calib, cfg: SlamConfig, device,
     back into pinned memory behind an event and taken in one chunk later.
     The outputs equal a sequential loop's bit for bit: the same inputs,
     the same ops, and RANSAC seeded by the chunk's position."""
-    _check_supported(cfg)
     device = cuda_kernels.resolve_device(device)
     cuda = device.type == "cuda"
     nF, chunk = frames.num, cfg.runtime.chunk_frames

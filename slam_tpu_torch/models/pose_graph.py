@@ -1,12 +1,15 @@
 """Keyframe pose graph (stateful wrapper over ops/pose_graph.py).
 
 Counterpart of ``slam_tpu/models/pose_graph.py``. Edges live in numpy
-arrays on the host; optimization and covariance queries run dense on
+arrays on the host; optimization and covariance queries run on
 ``device``. Odometry-only graphs take the analytic host-float64 chain
 (the exact zero-residual solution), and LM accepts only steps that cut
-the cost by more than 0.1%. ``save``/``load`` use the JAX package's npz
-format. Graphs above ``SPARSE_NODE_THRESHOLD`` nodes need the sparse
-selected-inverse path, which is still to be ported.
+the cost by more than 0.1%. Above ``SPARSE_NODE_THRESHOLD`` nodes,
+``optimize``, ``marginal_logdets`` and ``gate_distances`` take the sparse
+selected-inverse path (ops/pg_sparse.py, float64 on ``device``), which
+needs the odometry chain in node order; ``covariance_full``, ``marginal``
+and ``relative_covariance`` stay dense at any size. ``save``/``load`` use
+the JAX package's npz format.
 """
 
 from __future__ import annotations
@@ -17,9 +20,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..ops import cuda_kernels
+from ..ops import cuda_kernels, pg_sparse
 from ..ops import pose_graph as pg_ops
 
+# Above this node count optimize / gate / log-dets take the sparse path:
+# the dense (6N)^2 inverse is O(N^3) work and ~0.9 GB of float32
+# covariance at N = 2500; at the reference's ~650 keyframes its one
+# batched solve beats the sparse path's sequential recurrences.
 SPARSE_NODE_THRESHOLD = 1024
 
 
@@ -94,19 +101,39 @@ class PoseGraph:
             np.array_equal(self.e_i[chain], np.arange(self.num_nodes - 1))
             and np.array_equal(self.e_j[chain], np.arange(1, self.num_nodes)))
 
+    def _use_sparse(self) -> bool:
+        return self.num_nodes > SPARSE_NODE_THRESHOLD
+
+    def _tensor(self, x, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x), dtype=dtype,
+                               device=cuda_kernels.resolve_device(self.device))
+
     def _device_args(self):
-        if self.num_nodes > SPARSE_NODE_THRESHOLD:
-            raise NotImplementedError(
-                f"{self.num_nodes} keyframes > SPARSE_NODE_THRESHOLD="
-                f"{SPARSE_NODE_THRESHOLD}: the sparse selected-inverse pose "
-                f"graph (pg_sparse) is still to be ported (ROADMAP.md)")
-        dev = cuda_kernels.resolve_device(self.device)
-
-        def t(x, dtype=None):
-            return torch.as_tensor(np.asarray(x), device=dev, dtype=dtype)
-
+        """The dense path's inputs: nodes and every edge."""
+        t = self._tensor
         return (t(self.nodes), t(self.e_i, torch.int64),
                 t(self.e_j, torch.int64), t(self.Z), t(self.sqrt_info))
+
+    def _sparse_arrays(self):
+        """The sparse path's inputs: the graph split into the odometry
+        chain (edge k joins nodes k and k+1) and the loop edges (at least
+        one slot: an invalid one when there is no loop)."""
+        if not self._chain_layout():
+            raise ValueError("sparse path requires a consecutive odometry "
+                             "chain (from_bundles layout)")
+        t, chain, loop = self._tensor, ~self.is_loop, self.is_loop
+        if loop.any():
+            li, lj, Zl, sil = (self.e_i[loop], self.e_j[loop], self.Z[loop],
+                               self.sqrt_info[loop])
+            lv = np.ones(len(li), bool)
+        else:
+            li = lj = np.zeros(1, np.int64)
+            Zl = np.eye(4, dtype=np.float32)[None]
+            sil = np.zeros((1, 6, 6), np.float32)
+            lv = np.zeros(1, bool)
+        return (t(self.nodes), t(self.Z[chain]), t(self.sqrt_info[chain]),
+                t(li, torch.int64), t(lj, torch.int64), t(Zl), t(sil), t(lv),
+                self.num_nodes)
 
     def optimize(self, iters: int = 15) -> float:
         """Re-optimize all nodes; returns the final cost.
@@ -124,7 +151,11 @@ class PoseGraph:
                 out[k + 1] = Z[k] @ out[k]
             self.nodes = out.astype(np.float32)
             return 0.0
-        nodes, cost = pg_ops.optimize(*self._device_args(), iters=iters)
+        if self._use_sparse():
+            nodes, cost = pg_sparse.optimize_sparse(*self._sparse_arrays(),
+                                                    iters=iters)
+        else:
+            nodes, cost = pg_ops.optimize(*self._device_args(), iters=iters)
         self.nodes = nodes.cpu().numpy()
         return float(cost)
 
@@ -147,18 +178,26 @@ class PoseGraph:
                                           i, j).numpy()
 
     def marginal_logdets(self) -> tuple[np.ndarray, np.ndarray]:
-        loc, rot = pg_ops.marginal_logdets(*self._device_args())
+        """Per-node log-determinants of the 3x3 location and rotation
+        marginal covariances, (N,) each."""
+        if self._use_sparse():
+            loc, rot = pg_sparse.marginal_logdets_sparse(
+                *self._sparse_arrays())
+        else:
+            loc, rot = pg_ops.marginal_logdets(*self._device_args())
         return loc.cpu().numpy(), rot.cpu().numpy()
 
     def gate_distances(self, pair_i: np.ndarray,
                        pair_j: np.ndarray) -> np.ndarray:
-        """Mahalanobis gating distances (P,) of candidate pairs, in one
-        device pass (posterior inverse + batched quadratic forms)."""
-        args = self._device_args()
-        dev = args[0].device
-        d = pg_ops.gate_matrix(
-            *args, torch.as_tensor(np.asarray(pair_i), device=dev).long(),
-            torch.as_tensor(np.asarray(pair_j), device=dev).long())
+        """Mahalanobis gating distances (P,) of candidate pairs, on the
+        device (posterior covariance, dense or selected blocks, and batched
+        quadratic forms): only the distances come back."""
+        pi = self._tensor(pair_i, torch.int64)
+        pj = self._tensor(pair_j, torch.int64)
+        if self._use_sparse():
+            d = pg_sparse.gate_matrix_sparse(*self._sparse_arrays(), pi, pj)
+        else:
+            d = pg_ops.gate_matrix(*self._device_args(), pi, pj)
         return d.cpu().numpy()
 
     def save(self, path: str | Path) -> None:

@@ -1,5 +1,5 @@
 """The AKAZE + Hamming configuration as a whole: run_pipeline of both
-packages on one rendered loop scene, and the detectors the port refuses.
+packages on one rendered loop scene.
 
 The JAX package renders the scene (80 frames, 240x640) and both packages
 get the same numpy images, under ``test_torch_slice.CFG`` with
@@ -30,7 +30,6 @@ from slam_tpu import pipeline as jpipe
 from slam_tpu.utils import synthetic as jsynth
 from slam_tpu_torch import pipeline
 from slam_tpu_torch.config import MatchConfig
-from slam_tpu_torch.utils import synthetic
 
 from tests.test_torch_slice import CFG, jax_config, rot_deg
 
@@ -109,14 +108,3 @@ def test_akaze_slice_trajectories_agree(runs):
     for k in ("frontend", "bundles_kf", "pose_graph_kf"):
         assert ev_t[k]["ate_rmse_m"] < 2.0, k
     assert abs(ev_t["num_pose_failures"] - ev_j["num_pose_failures"]) <= 1
-
-
-@pytest.mark.parametrize("detector", ["orb", "sift"])
-def test_unported_detectors_still_raise(detector):
-    cfg = dataclasses.replace(
-        AKAZE_CFG, features=dataclasses.replace(AKAZE_CFG.features,
-                                                detector=detector))
-    imgs = np.zeros((2, 96, 160), np.float32)
-    with pytest.raises(NotImplementedError, match=detector):
-        pipeline.run_pipeline(imgs, imgs, synthetic.KITTI_CALIB, cfg,
-                              verbose=False, device="cpu")

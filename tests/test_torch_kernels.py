@@ -928,3 +928,74 @@ def test_cuda_slice_runs_through_the_kernels(cuda):
     assert ck.LAUNCHES["cholesky_solve"] % cfg.bundle.lm_iters == 0
     assert not any(ck.PLAIN_CALLS.values())
     assert np.isfinite(res.T_frontend).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 752, 2482), (8, 94, 311),
+                                   (3, 96, 160)])
+def test_cuda_orientation_maps_at_sift_octaves(cuda, shape):
+    """B3 on SIFT's octave bases (the x2-upsampled, pre-blurred image at
+    KITTI's 752 x 2482, the fourth octave at 94 x 311, a small one) with
+    B1's tolerances, and the SIFT detector through B3 on the card: B3
+    launched once per octave, no plain version run, and >= 99% of its
+    keypoints within 1e-3 px of the CPU run's on the same images (cuDNN's
+    blurs round otherwise than the CPU's, which may flip a near-tie)."""
+    from slam_tpu_torch.ops import features, sift
+
+    imgs = t(images(11, shape[0], (shape[1] + 1) // 2, (shape[2] + 1) // 2))
+    pre = float((sift.SIGMA0 ** 2 - 1.0) ** 0.5)
+    base = features.gaussian_blur(sift.upsample2(imgs.to(cuda)), pre,
+                                  sift._blur_radius(pre))
+    x = base[..., :shape[1], :shape[2]].contiguous()
+    ck.reset_counters()
+    m_k = ck.orientation_maps(x)
+    m_p = ck.orientation_maps_plain(x)
+    torch.cuda.synchronize()
+    m_bad = ((m_k - m_p).abs() > 1e-5 * float(m_p.abs().max())).float()
+    assert float(m_bad.mean()) <= 1e-3
+    if shape[1] > 100:
+        return
+    ck.reset_counters()
+    out = sift.detect_and_describe_sift_batch(imgs.to(cuda), max_kp=512,
+                                              octaves=3)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["orientation_maps"] == 3
+    assert not any(ck.PLAIN_CALLS.values())
+    ref = sift.detect_and_describe_sift_batch(imgs, max_kp=512, octaves=3)
+    for f in range(shape[0]):
+        a = out["xy"][f][out["valid"][f]].cpu()
+        b = ref["xy"][f][ref["valid"][f]]
+        assert len(a) > 20 and abs(len(a) - len(b)) <= 0.01 * len(b) + 1
+        assert (torch.cdist(a, b).min(dim=1).values < 1e-3).float().mean(
+        ) >= 0.99
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_pose_graph_matches_dense_at_2560(cuda):
+    """chip_smoke.py's 2560-node stiff graph on the card: the selected
+    blocks (every diagonal block but the gauge's, cross blocks of pairs 499
+    apart) within 1e-5 of the dense float64 inverse, relative to each
+    block's largest entry; optimize moves the nodes, every gate distance
+    finite and positive."""
+    import chip_smoke
+    from slam_tpu_torch.ops import pg_sparse
+
+    N = chip_smoke.PG_NODES
+    pg = chip_smoke.stiff_loop_graph(N, "cuda")
+    args = pg._sparse_arrays()
+    pi = np.arange(17, N - 500, 17)
+    qi = torch.as_tensor(np.concatenate([pi, pi + 499]), device=cuda)
+    qj = torch.as_tensor(np.concatenate([pi + 499, pi]), device=cuda)
+    Cdiag, Cq = pg_sparse.selected_blocks(*args, qi, qj)
+    C, _ = chip_smoke.dense_cov64(pg_sparse, args)
+    k = torch.arange(1, N, device=cuda)
+    for got, want in ((Cdiag[1:], C[k, :, k, :]), (Cq, C[qi, :, qj, :])):
+        err = (got.double() - want).abs().amax((1, 2)) / want.abs().amax(
+            (1, 2))
+        assert float(err.max()) <= 1e-5
+    del C
+    before = pg.nodes.copy()
+    assert np.isfinite(pg.optimize(iters=3))
+    assert np.abs(pg.nodes[:, :3, 3] - before[:, :3, 3]).max() > 0.05
+    d = pg.gate_distances(pi, pi + 499)
+    assert np.isfinite(d).all() and (d > 0).all()

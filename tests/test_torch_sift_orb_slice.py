@@ -1,0 +1,137 @@
+"""The SIFT and the ORB + Hamming configurations as a whole: run_pipeline
+of both packages on one rendered loop scene per detector.
+
+The JAX package renders each scene (80 frames, ``trajectory="loop"``)
+and both packages get the same numpy images, under
+``test_torch_slice.CFG`` with the detector swapped in:
+
+  * SIFT at 160x320, K = 512 (``test_torch_slice``'s size): the x2 octave
+    makes SIFT the costliest detector on the CPU (~45 s for the port's 80
+    frames here), and fewer frames would not close the loop;
+  * ORB + Hamming at 240x640, K = 1024 (``test_torch_akaze_slice``'s
+    size): at 160x320 FAST-9 finds too few corners to track (17 pose
+    failures in 80 frames, and no closure under one of three RANSAC
+    seeds of the port).
+
+Detection and matching are deterministic, so the frontends agree slot by
+slot; RANSAC's hypotheses are not (jax.random against a torch
+Generator). Measured on these scenes, the port under RANSAC seeds 0, 1
+and 2 against the JAX package:
+
+  * SIFT: closure (0, 79) with 138 inliers in all four runs; frame poses a
+    median 1.3-1.9 cm / 0.025-0.050 deg from the JAX package's (seed 1
+    against seed 2: 1.2 cm / 0.035 deg); ATE frontend 0.69-0.82 m (JAX
+    0.74), bundles 0.37-2.13 m (JAX 0.85), loop-closed 0.12-0.53 m (JAX
+    0.76); pose failures 0-1 (JAX 1);
+  * ORB: closure (0, 79) with 167 inliers in all four runs; seed 0's frame
+    poses a median 5e-6 m from the JAX package's; ATE frontend 0.11-0.16
+    m (JAX 0.16), bundles 0.14-3.89 m (JAX 3.54: on this scene a few BA
+    windows go astray in either package), loop-closed 0.13-1.48 m (JAX
+    0.10); pose failures 2-4 (JAX 2).
+
+The bounds below are set from those measurements.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from slam_tpu import pipeline as jpipe
+from slam_tpu.utils import synthetic as jsynth
+from slam_tpu_torch import pipeline
+from slam_tpu_torch.config import MatchConfig
+
+from tests.test_torch_slice import CFG, jax_config, rot_deg
+
+torch.set_num_threads(2)
+
+CONFIGS = {
+    "sift": (dataclasses.replace(
+        CFG, features=dataclasses.replace(CFG.features, detector="sift")),
+        (160, 320)),
+    "orb": (dataclasses.replace(
+        CFG, features=dataclasses.replace(CFG.features, max_kp=1024,
+                                          detector="orb"),
+        matching=MatchConfig(norm="hamming")), (240, 640)),
+}
+# per detector: |frontend ATE - JAX's|, bundles and pose-graph ATE, the
+# loop-closed ATE (m), pose failures apart (module docstring)
+BOUNDS = {"sift": (0.25, 3.0, 1.0, 1), "orb": (0.1, 5.0, 2.0, 2)}
+
+
+@pytest.fixture(scope="module", params=list(CONFIGS))
+def runs(request):
+    cfg, hw = CONFIGS[request.param]
+    scene = jsynth.make_scene(jax.random.PRNGKey(3), num_frames=80,
+                              num_landmarks=6000, trajectory="loop", hw=hw)
+    L, R = jsynth.render_sequence(scene)
+    calib = np.asarray(scene.calib)
+    res_j = jpipe.run_pipeline(L, R, calib, jax_config(cfg), verbose=False)
+    res_t = pipeline.run_pipeline(L, R, calib, cfg, verbose=False,
+                                  device="cpu")
+    return request.param, cfg, np.asarray(scene.T_w2c), res_j, res_t
+
+
+def test_frontend_matches_agree(runs):
+    """Before RANSAC the two frontends agree on every frame: keypoints
+    within 1e-3 px, stereo links and temporal matches equal on >= 99.9%
+    of the slots. Where both matched the same slot, the distances agree:
+    in whole bits under Hamming, equal on >= 99% (a BRIEF bit at a
+    near-tie may flip, one bit); under L2 within 1e-4 on >= 99% and 2e-3
+    on all (the matcher rounds descriptors to bf16, and one that differs
+    in its last float32 bits can round to the neighbouring bf16 value:
+    0.13% of the SIFT scene's matches, by up to 5.3e-4)."""
+    det, cfg, _, res_j, res_t = runs
+    fj, ft = res_j.frontend, res_t.frontend
+    both = fj.valid & ft.valid
+    assert (fj.valid == ft.valid).mean() >= 0.999
+    np.testing.assert_allclose(ft.xy[both], fj.xy[both], atol=1e-3)
+    assert (fj.link_valid == ft.link_valid).mean() >= 0.999
+    linked = fj.link_valid & ft.link_valid
+    np.testing.assert_allclose(ft.links[linked], fj.links[linked], atol=1e-3)
+    assert (fj.match_prev == ft.match_prev).mean() >= 0.999
+    same = (fj.match_prev == ft.match_prev) & (ft.match_prev >= 0)
+    assert same.sum() > 100 * 79
+    dt, dj = ft.match_dist[same], fj.match_dist[same]
+    if det == "orb":
+        assert (dt == np.round(dt)).all() and dt.max() <= 40
+        assert (dt == dj).mean() >= 0.99
+        assert np.abs(dt - dj).max() <= 2
+    else:
+        assert (np.abs(dt - dj) <= 1e-4).mean() >= 0.99
+        np.testing.assert_allclose(dt, dj, atol=2e-3)
+
+
+def test_closes_the_same_loops(runs):
+    """The same closure frame pairs as the JAX package, inlier counts
+    within 10%."""
+    _, _, _, res_j, res_t = runs
+    cj = [(c.frame_i, c.frame_j) for c in res_j.closures]
+    assert (0, 79) in cj
+    assert [(c.frame_i, c.frame_j) for c in res_t.closures] == cj
+    for ct, c_j in zip(res_t.closures, res_j.closures):
+        assert abs(ct.num_inliers - c_j.num_inliers) <= 0.1 * c_j.num_inliers
+
+
+def test_trajectories_agree(runs):
+    """Frame-to-frame poses within a median 5 cm / 0.1 deg of the JAX
+    package's; the frontend ATE within BOUNDS of the JAX package's, the
+    bundle and pose-graph ATEs and the loop-closed one under BOUNDS, pose
+    failures within BOUNDS (module docstring: RANSAC draws)."""
+    det, _, T_gt, res_j, res_t = runs
+    d_front, b_max, lc_max, d_fail = BOUNDS[det]
+    rj, rt = res_j.frontend.T_rel[1:], res_t.frontend.T_rel[1:]
+    dt = np.abs(rt[:, :3, 3] - rj[:, :3, 3]).max(-1)
+    assert np.median(dt) < 0.05 and np.median(rot_deg(rt, rj)) < 0.1
+    ev_j = jpipe.evaluate(res_j, T_gt)
+    ev_t = pipeline.evaluate(res_t, T_gt)
+    assert abs(ev_t["frontend"]["ate_rmse_m"]
+               - ev_j["frontend"]["ate_rmse_m"]) < d_front
+    for k in ("bundles_kf", "pose_graph_kf"):
+        assert ev_t[k]["ate_rmse_m"] < b_max, k
+    assert ev_t["pose_graph_lc_kf"]["ate_rmse_m"] < lc_max
+    assert abs(ev_t["num_pose_failures"]
+               - ev_j["num_pose_failures"]) <= d_fail

@@ -164,17 +164,6 @@ def test_unported_options_raise(kwargs):
                               verbose=False, device="cpu", **kwargs)
 
 
-def test_unported_detectors_raise():
-    import dataclasses
-
-    imgs = np.zeros((2, 96, 160), np.float32)
-    cfg = dataclasses.replace(
-        CFG, features=dataclasses.replace(CFG.features, detector="orb"))
-    with pytest.raises(NotImplementedError):
-        pipeline.run_pipeline(imgs, imgs, synthetic.KITTI_CALIB, cfg,
-                              verbose=False, device="cpu")
-
-
 @pytest.mark.parametrize("entry", ["run_pipeline", "run_frontend", "cli",
                                    "scale_run", "pnp_trajectory_from_db"])
 def test_default_device_is_the_card(entry, monkeypatch, tmp_path):
@@ -258,6 +247,20 @@ with tempfile.TemporaryDirectory() as tmp:
 import slam_tpu_torch.scale_run, slam_tpu_torch.runtime.tsan
 import slam_tpu_torch.models.db_odometry, slam_tpu_torch.models.covgraph
 import slam_tpu_torch.ops.triangulation, slam_tpu_torch.convert
+
+# the SIFT and ORB detectors and the sparse pose graph, at tiny sizes
+import torch
+from slam_tpu_torch.ops import orb, pg_sparse, sift
+from slam_tpu_torch.models import pose_graph
+imgs = torch.rand(2, 64, 96)
+sift.detect_and_describe_sift_batch(imgs, max_kp=128, octaves=3)
+orb.detect_and_describe_orb_batch(imgs, max_kp=128)
+pg = res.pose_graph_pre_lc.copy()
+pose_graph.SPARSE_NODE_THRESHOLD = 2
+pg.add_edge(0, pg.num_nodes - 1, pg.Z[0], np.eye(6) * 1e-2)
+assert np.isfinite(pg.optimize(iters=2)) and pg._use_sparse()
+pg.gate_distances(np.array([1]), np.array([pg.num_nodes - 1]))
+pg.marginal_logdets()
 print(sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "slam_tpu")))
 """
@@ -267,7 +270,8 @@ def test_port_never_imports_jax():
     """The port's whole slice, on a tiny scene, in a fresh interpreter, in
     memory and from PNG files on disk (KITTI IO, the native runtime, the
     prefetcher, the stage cache, a checkpoint resume), then the CLI on the
-    CPU with its analysis, and every other module imported: afterwards no
+    CPU with its analysis, the SIFT and ORB detectors and the sparse pose
+    graph, and every other module imported: afterwards no
     module of JAX nor any module of the JAX package (``slam_tpu`` or
     ``slam_tpu.*``) is loaded."""
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
@@ -311,7 +315,9 @@ def test_port_sources_import_nothing_of_jax():
             "slam_tpu_torch/runtime/tsan.py",
             "slam_tpu_torch/models/db_odometry.py",
             "slam_tpu_torch/models/covgraph.py",
-            "slam_tpu_torch/ops/triangulation.py"} <= names
+            "slam_tpu_torch/ops/triangulation.py",
+            "slam_tpu_torch/ops/sift.py", "slam_tpu_torch/ops/orb.py",
+            "slam_tpu_torch/ops/pg_sparse.py"} <= names
     assert [f for p in files for f in foreign_imports(p)] == []
 
 
