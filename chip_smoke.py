@@ -135,6 +135,35 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      each call; (b) phase 4's main path with SPARSE_NODE_THRESHOLD patched
      to 8: the sparse gate and optimize called, phase 4's closures, every
      ATE within 0.01 m of phase 4's;
+  4l. the mesh and overlap modes and the TP mega-bundle (`[mesh]` lines):
+     (a) run_pipeline(mesh=make_mesh()) under drive_path's gates: its
+     frontend equal bit for bit to phase 4's, phase 4's keyframes and
+     closures, B6 launched at the TP shapes (every window of the scene
+     overflows SlamConfig()'s capacities, so a mesh re-solves each on the
+     TP path), and the window batch on the mesh (optimize_windows(mesh=),
+     before the re-solve) within SLICE_TOL of phase 4's rel_T; (b) a
+     4-shard mesh with chunk_frames=16 (steps of 64 and 16 frames), BA's
+     batches padded to a multiple of 4; (c) overlap=True on (a)'s mesh:
+     (a)'s keyframes, windows and closures, rel_T within SLICE_TOL of
+     phase 4's (the overlapped stages re-solve nothing on the TP path, as
+     in the JAX package), and the medians of 3 warm runs of the
+     overlapped stage against (a)'s frontend + trackstore + bundles, with
+     and without the TP re-solves; (d) run_bundles on
+     phase 4's frontend under BundleConfig(max_landmarks=128,
+     max_obs=1024) with 4 shards: windows re-solved at full size
+     (num_obs > max_obs), every such rel_cov positive definite, B6 at the
+     TP shapes (1, 6n, 6n) and, on the last system of its most launched
+     TP shape, against its plain version, the bundles' keyframe ATE at
+     most the truncated solve's x 1.1 + 0.02 m, and the difference to the
+     port's emulation of the JAX package's re-solve (no depth gate,
+     covariances at the initial landmarks); (e) a mega-bundle (P = 24,
+     50,000 landmarks, 8 observations each, utils.synthetic.megaproblem;
+     40 LM iterations, its sums in float64) on 4 shards and on
+     1: poses within
+     1e-4 and cost within 1e-4 relative, the cost below the initial one,
+     ms per LM iteration and peak device memory, and B6 against its plain
+     version on every (1, 144, 144) reduced system of a 4-shard run; (f) one BA batch of
+     KITTI 00's 651 windows at full capacity: seconds and peak memory;
   5. with --profile DIR: one more warm run of the main path, and one
      each of the AKAZE, the SIFT and the ORB path, under torch.profiler;
      wall time, device busy time (union of the device events' intervals)
@@ -798,8 +827,9 @@ def profile_path(pipeline, L, R, calib, cfg, out_dir, card,
 
 
 def drive_path(pipeline, ck, L, R, scene, cfg, required, tag, card,
-               on_reset=None, plain_ok=()):
-    """run_pipeline + evaluate under ``cfg`` on the card: a warm-up pass
+               on_reset=None, plain_ok=(), **run_kw):
+    """run_pipeline + evaluate under ``cfg`` (and ``run_kw``, a mesh) on
+    the card: a warm-up pass
     (cuDNN / cuBLAS / cuSOLVER handles, allocator), then the measured pass
     with the launch counters zeroed just before it (``on_reset`` is called
     there too) and read just after. Fails unless every kernel in
@@ -809,14 +839,14 @@ def drive_path(pipeline, ck, L, R, scene, cfg, required, tag, card,
     Returns the measured pass's launches, plain calls, ATEs, closure frame
     pairs, stage timings and number of BA windows."""
     pipeline.run_pipeline(L, R, scene.calib, cfg, verbose=False,
-                          device="cuda")
+                          device="cuda", **run_kw)
     torch.cuda.synchronize()
     ck.reset_counters()
     if on_reset is not None:
         on_reset()
     t0 = time.perf_counter()
     res = pipeline.run_pipeline(L, R, scene.calib, cfg, verbose=False,
-                                device="cuda")
+                                device="cuda", **run_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ck.LAUNCHES)
@@ -839,9 +869,11 @@ def drive_path(pipeline, ck, L, R, scene, cfg, required, tag, card,
     if report["num_closures"] < 1:
         fail(f"{tag}: no loop closure found on the loop scene")
     t = res.timings
+    rate = (f"; frontend {n_frames / t['frontend']:.1f} frames/s"
+            if "frontend" in t else "")
     log(f"[{tag}] {n_frames} frames {HW}: wall {wall:.2f} s, stages "
         + ", ".join(f"{k} {v:.3f} s" for k, v in t.items())
-        + f"; frontend {n_frames / t['frontend']:.1f} frames/s ({card})")
+        + f"{rate} ({card})")
     log(f"[{tag}] closures "
         f"{[(c.frame_i, c.frame_j, c.num_inliers) for c in res.closures]}"
         f"; ATE m {json.dumps(ates)}; pose failures "
@@ -1488,6 +1520,312 @@ def sparse_pg_phase(pipeline, ck, L, R, scene, cfg, main_path, card) -> dict:
     return secs
 
 
+# phase 4l: the mesh and overlap modes and the TP mega-bundle. (d) cuts
+# the windows' capacities so that the scene's windows overflow; (e) is a
+# mega-bundle of tests/test_tp_megabundle.py's construction at P = 24
+TIGHT = {"max_landmarks": 128, "max_obs": 1024}
+MEGA = {"P": 24, "L": 50_000, "obs_per_lm": 8, "iters": 40}
+KITTI00_WINDOWS = 651
+
+
+def mesh_phase(pipeline, ck, ba, bundle, L, R, scene, cfg, main_path,
+               card) -> dict:
+    """Phase 4l: (a) run_pipeline on a 1-shard mesh, (b) on 4 shards with
+    chunk_frames=16, (c) overlap=True, (d) the TP overflow re-solve, (e) a
+    mega-bundle on 4 shards and on 1, (f) one BA batch of KITTI 00's
+    window count. Returns B6's rows at the TP shapes of (d) and (e): each
+    with its launches in that run, and its error and times on one of the
+    systems that run solved."""
+    import dataclasses
+
+    from slam_tpu_torch.config import BundleConfig, RuntimeConfig
+    from slam_tpu_torch.ops import se3, stereo
+    from slam_tpu_torch.parallel import sharded_ba
+    from slam_tpu_torch.parallel import tp_megabundle as tp
+    from slam_tpu_torch.parallel.mesh import make_mesh
+    from slam_tpu_torch.utils import metrics, synthetic
+
+    need = ("detect_maps", "mutual_nearest", "cholesky_solve")
+    ref = main_path["result"]
+    mesh1, mesh4 = make_mesh(), make_mesh(4)
+    # the windows the TP path re-solves under a mesh (overflowed ones)
+    batch = bundle.build_windows(ref.db, ref.frontend.T_w2c,
+                                 ref.bundles.keyframes, cfg.bundle)
+    bundle.init_landmarks(batch, scene.calib)
+    routed = sorted(spec["bi"] for spec in batch.overflow)
+
+    def rel_T_diff(a, b):
+        return float(np.abs(np.asarray(a) - np.asarray(b)).max())
+
+    # ---- (a) a 1-shard mesh ------------------------------------------------
+    shapes = collections.Counter()
+    kept = {}  # the last single system solved at each (1, N, N) shape
+    b6_solve = ba._spd_solve
+
+    def counting(S, g):
+        shapes[tuple(S.shape)] += 1
+        if S.shape[0] == 1:
+            kept[tuple(S.shape)] = (S.detach().clone(), g.detach().clone())
+        return b6_solve(S, g)
+
+    def b6_row(run, S, g, launches, by_shape, checked=None):
+        """B6 on one system of a run against its plain version: error
+        (check_b6's tolerance; on the batch ``checked`` where given), the
+        three times and the bound."""
+        err = check_b6(ck, *(checked or (S, g)), run)
+        return {"run": run, "shape": list(S.shape), "launches": launches,
+                "launches_by_shape": by_shape, "max_abs_err": err,
+                "ms": median_ms(lambda: ck.cholesky_solve(S, g)),
+                "plain_ms": median_ms(lambda: ck.cholesky_solve_plain(S, g)),
+                "library_ms": median_ms(lambda: torch.linalg.solve_ex(S, g)),
+                "bound_ms": b6_bound(S, g)[0]}
+
+    with solving_with(ba, counting):
+        a = drive_path(pipeline, ck, L, R, scene, cfg, need, "mesh 1-shard",
+                       card, on_reset=shapes.clear, mesh=mesh1)
+    res_a = a["result"]
+    same_frontend(res_a.frontend, ref.frontend, "mesh (a) frontend")
+    if res_a.bundles.keyframes != ref.bundles.keyframes:
+        fail(f"mesh (a): keyframes {res_a.bundles.keyframes}, phase 4 "
+             f"{ref.bundles.keyframes}")
+    if a["closures"] != main_path["closures"]:
+        fail(f"mesh (a): closures {a['closures']}, phase 4 "
+             f"{main_path['closures']}")
+    if not any(s_[0] == 1 and s_[1] > 12 for s_ in shapes) and routed:
+        fail(f"mesh (a): B6 at no TP shape, {dict(shapes)}")
+    # the window batch on the mesh, before the TP re-solve, against phase
+    # 4's windows (both cut to the capacities)
+    sharded = bundle.optimize_windows(batch, scene.calib, cfg.bundle,
+                                      mesh=mesh1)
+    d_a = rel_T_diff(sharded.rel_T, ref.bundles.rel_T)
+    if not d_a <= SLICE_TOL["poses"]:
+        fail(f"mesh (a): the sharded batch's rel_T {d_a:.3e} from phase 4's "
+             f"(limit {SLICE_TOL['poses']})")
+    log(f"[mesh] (a) 1-shard mesh: frontend equal bit for bit to phase 4's, "
+        f"keyframes and closures equal; the sharded batch of "
+        f"{batch.num_windows} windows within {d_a:.3e} of phase 4's rel_T "
+        f"(limit {SLICE_TOL['poses']}); windows {routed} overflow "
+        f"SlamConfig()'s capacities (max_landmarks {cfg.bundle.max_landmarks}"
+        f", max_obs {cfg.bundle.max_obs}; obs_dropped {batch.obs_dropped} of "
+        f"{batch.obs_total}, which leaves out the landmark cut, as in the JAX "
+        f"package) and are re-solved at full size on the TP path (rel_T "
+        f"{rel_T_diff(res_a.bundles.rel_T, ref.bundles.rel_T):.3e} from the "
+        f"truncated solve); B6 by shape {dict(shapes)} ({card})")
+
+    # ---- (b) 4 shards, 16 frames each: steps of 64 and 16 frames ---------
+    cfg16 = dataclasses.replace(cfg, runtime=RuntimeConfig(chunk_frames=16))
+    with solving_with(ba, counting):
+        b = drive_path(pipeline, ck, L, R, scene, cfg16, need, "mesh 4-shard",
+                       card, on_reset=shapes.clear, mesh=mesh4)
+    batched = [s_ for s_ in shapes if s_[0] > 1]
+    if not batched or any(s_[0] % 4 for s_ in batched):
+        fail(f"mesh (b): BA batches {batched} not padded to a multiple of 4")
+    log(f"[mesh] (b) 4-shard mesh, chunk_frames=16 (steps of 64 and 16 "
+        f"frames): {b['windows']} windows in B6 batches {batched}, closures "
+        f"{b['closures']}, ATE m {json.dumps(b['ates'])} ({card})")
+
+    # ---- (c) overlap on (a)'s mesh ------------------------------------------
+    # the overlapped stages re-solve no window on the TP path (as in the
+    # JAX package): their rel_T is held against phase 4's truncated solve
+    c = drive_path(pipeline, ck, L, R, scene, cfg, need, "mesh overlap", card,
+                   mesh=mesh1, overlap=True)
+    res_c = c["result"]
+    for k in ("frames", "n_poses", "track_of_lm", "meas", "cam_idx",
+              "lm_idx"):
+        if not np.array_equal(getattr(res_c.bundles, k),
+                              getattr(res_a.bundles, k)):
+            fail(f"mesh (c): the overlapped windows' {k} differ from (a)'s")
+    if res_c.bundles.keyframes != res_a.bundles.keyframes:
+        fail(f"mesh (c): keyframes {res_c.bundles.keyframes}, (a) "
+             f"{res_a.bundles.keyframes}")
+    d_c = rel_T_diff(res_c.bundles.rel_T, ref.bundles.rel_T)
+    if not d_c <= SLICE_TOL["poses"]:
+        fail(f"mesh (c): rel_T {d_c:.3e} from phase 4's (limit "
+             f"{SLICE_TOL['poses']})")
+    if c["closures"] != a["closures"]:
+        fail(f"mesh (c): closures {c['closures']}, (a) {a['closures']}")
+    no_tp = dataclasses.replace(cfg, bundle=dataclasses.replace(
+        cfg.bundle, tp_overflow=False))
+    walls = {k: [] for k in ("sequential", "sequential, no TP", "overlapped")}
+    for _ in range(3):
+        for k, c_ in (("sequential", cfg), ("sequential, no TP", no_tp)):
+            t = pipeline.run_pipeline(L, R, scene.calib, c_, verbose=False,
+                                      mesh=mesh1).timings
+            walls[k].append(t["frontend"] + t["trackstore"] + t["bundles"])
+        t = pipeline.run_pipeline(L, R, scene.calib, cfg, verbose=False,
+                                  mesh=mesh1, overlap=True).timings
+        walls["overlapped"].append(t["frontend+bundles_overlapped"])
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    log(f"[mesh] (c) overlap: keyframes and windows equal to (a)'s, rel_T "
+        f"within {d_c:.3e} of phase 4's, closures equal; medians of 3 warm "
+        f"runs: frontend + trackstore + bundles {med['sequential']:.3f} s "
+        f"(with the TP re-solves), {med['sequential, no TP']:.3f} s "
+        f"(tp_overflow=False), frontend+bundles_overlapped "
+        f"{med['overlapped']:.3f} s (runs {json.dumps(walls)}) ({card})")
+
+    # ---- (d) the TP overflow re-solve ---------------------------------------
+    cfg_t = dataclasses.replace(cfg, bundle=BundleConfig(**TIGHT))
+    fe, db = ref.frontend, ref.db
+    cut = bundle.run_bundles(db, fe.T_w2c, scene.calib, cfg_t)
+    torch.cuda.synchronize()
+    ck.reset_counters()
+    shapes.clear()
+    kept.clear()
+    t0 = time.perf_counter()
+    with solving_with(ba, counting):
+        res_d = bundle.run_bundles(db, fe.T_w2c, scene.calib, cfg_t,
+                                   mesh=mesh4)
+    torch.cuda.synchronize()
+    wall_d = time.perf_counter() - t0
+    if any(ck.PLAIN_CALLS.values()):
+        fail(f"mesh (d): a plain version ran: {ck.PLAIN_CALLS}")
+    tp_shapes = {s_: n for s_, n in shapes.items() if s_[0] == 1}
+    routed_d = np.nonzero(res_d.num_obs > TIGHT["max_obs"])[0]
+    if not len(routed_d) or not tp_shapes:
+        fail(f"mesh (d): no window re-solved at full size (num_obs "
+             f"{res_d.num_obs.tolist()}, B6 shapes {dict(shapes)})")
+    for bi in routed_d:
+        eig = np.linalg.eigvalsh(res_d.rel_cov[bi].astype(np.float64))
+        if not eig.min() > 0:
+            fail(f"mesh (d): rel_cov of window {bi} not positive definite "
+                 f"({eig})")
+    kfs = res_d.keyframes
+    ate_tp = metrics.ate_rmse(res_d.T_w2c_keyframes, scene.T_w2c[kfs])
+    ate_cut = metrics.ate_rmse(cut.T_w2c_keyframes, scene.T_w2c[kfs])
+    if not ate_tp <= ate_cut * 1.1 + 0.02:
+        fail(f"mesh (d): bundles ATE {ate_tp} m with the TP re-solve, "
+             f"{ate_cut} m truncated (limit x 1.1 + 0.02)")
+    # B6 on a system that (d) solved: the last one of its most launched
+    # TP shape
+    top = max(tp_shapes, key=lambda s_: (tp_shapes[s_], s_[1]))
+    row_d = b6_row("(d) TP overflow re-solve, 4 shards", *kept[top],
+                   sum(tp_shapes.values()),
+                   {str(k): n for k, n in tp_shapes.items()})
+    # the port's emulation of the JAX package's re-solve on the same
+    # windows: no depth gate, the covariances at the initial landmarks
+    # (ROADMAP.md queue C; tests/test_torch_tp_megabundle.py holds the
+    # JAX package itself against the port on the CPU)
+    batch_t = bundle.build_windows(db, fe.T_w2c, kfs, cfg_t.bundle)
+    mesh_tp = make_mesh(4, axis="tp")
+    d_cov, d_rel, jax_rel = [], [], res_d.rel_T.copy()
+    for spec in batch_t.overflow:
+        bi, n = spec["bi"], int(batch_t.n_poses[spec["bi"]])
+        p0, x0, ci, li, ms, w = bundle.overflow_problem(
+            spec, batch_t, db, scene.calib, cfg_t.bundle)
+        parts = tp.partition_megabundle(x0, ci, li, ms, w, 4)
+        poses = tp.optimize_megabundle(mesh_tp, p0, *parts, scene.calib,
+                                       iters=cfg_t.bundle.lm_iters)[0]
+        cov0 = tp.megabundle_pose_covariances(mesh_tp, poses, *parts,
+                                              scene.calib)[n - 1]
+        ours = res_d.rel_cov[bi]
+        d_cov.append(float(np.linalg.norm(cov0 - ours) / np.linalg.norm(ours)))
+        d_rel.append(synthetic.twist_err(poses[n - 1:n],
+                                         res_d.rel_T[bi:bi + 1]))
+        jax_rel[bi] = poses[n - 1]
+    ate_jax = metrics.ate_rmse(bundle._chain(jax_rel), scene.T_w2c[kfs])
+    log(f"[mesh] (d) TP overflow under {TIGHT}, 4 shards: {len(routed_d)} of "
+        f"{len(res_d.num_obs)} windows re-solved at full size (num_obs "
+        f"{res_d.num_obs[routed_d].tolist()}), every rel_cov positive "
+        f"definite; B6 at the TP shapes {tp_shapes}; run_bundles {wall_d:.2f} "
+        f"s; bundles ATE {ate_tp:.4f} m vs {ate_cut:.4f} m truncated (limit "
+        f"x 1.1 + 0.02); B6 at {top} on (d)'s last such system: kernel "
+        f"{row_d['ms']:.4f} ms, plain {row_d['plain_ms']:.4f} ms, solve_ex "
+        f"{row_d['library_ms']:.4f} ms, bound {row_d['bound_ms']:.6f} ms, "
+        f"max abs err {row_d['max_abs_err']:.3e} ({card})")
+    log(f"[mesh] (d) against the port's emulation of the JAX package's "
+        f"re-solve (optimize_megabundle with no depth gate, covariances at "
+        f"the initial landmarks) on the same windows: rel_cov "
+        f"differs by {min(d_cov):.3e}-{max(d_cov):.3e} (relative Frobenius), "
+        f"rel_T by {min(d_rel):.3e}-{max(d_rel):.3e} (twist norm); bundles "
+        f"ATE {ate_jax:.4f} m there ({card})")
+
+    # ---- (e) one mega-bundle on 4 shards and on 1 ---------------------------
+    _, _, p0, x0, ci, li, ms, w = synthetic.megaproblem(
+        scene.calib, MEGA["P"], MEGA["L"], MEGA["obs_per_lm"], SEED)
+    iters = MEGA["iters"]  # the dense path's 2 x 20; 20 leave it short
+    mega = {}
+    ck.reset_counters()
+    for n_sh in (4, 1):
+        m = make_mesh(n_sh, axis="tp")
+        parts = tp.partition_megabundle(x0, ci, li, ms, w, n_sh)
+        tp.optimize_megabundle(m, p0, *parts, scene.calib, iters=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = tp.optimize_megabundle(m, p0, *parts, scene.calib, iters=iters)
+        mega[n_sh] = out + ((time.perf_counter() - t0) / iters,
+                            torch.cuda.max_memory_allocated() / 2**30)
+    launches_e = ck.LAUNCHES["cholesky_solve"]
+    if any(ck.PLAIN_CALLS.values()) or not launches_e:
+        fail(f"mesh (e): B6 launches {launches_e}, plain calls "
+             f"{ck.PLAIN_CALLS}")
+    d_pose = synthetic.twist_err(mega[4][0], mega[1][0])
+    d_cost = abs(mega[4][2] - mega[1][2]) / mega[1][2]
+    if not (d_pose <= 1e-4 and d_cost <= 1e-4):
+        fail(f"mesh (e): 4 shards vs 1: poses {d_pose:.3e} (limit 1e-4), "
+             f"cost {d_cost:.3e} relative (limit 1e-4)")
+    if not mega[4][2] < mega[4][3]:
+        fail(f"mesh (e): cost {mega[4][2]} not below the initial "
+             f"{mega[4][3]}")
+    # B6 against its plain version on every system of one more 4-shard
+    # run, as one batch: on a system this ill-conditioned either solve's
+    # error alone varies by several times from one system to the next, so
+    # the batch's largest errors are compared (check_b6); timed on the
+    # first system
+    solved = []
+
+    def keep(S_, g_):
+        solved.append((S_.detach().clone(), g_.detach().clone()))
+        return b6_solve(S_, g_)
+
+    parts = tp.partition_megabundle(x0, ci, li, ms, w, 4)
+    with solving_with(ba, keep):
+        tp.optimize_megabundle(make_mesh(4, axis="tp"), p0, *parts,
+                               scene.calib, iters=iters)
+    S_all = torch.cat([S_ for S_, _ in solved])
+    g_all = torch.cat([g_ for _, g_ in solved])
+    S, g = S_all[:1], g_all[:1]
+    row_e = b6_row("(e) mega-bundle, 4 and 1 shards", S, g, launches_e,
+                   {str(tuple(S.shape)): launches_e},
+                   checked=(S_all, g_all))
+    row_e["checked_systems"] = len(solved)
+    log(f"[mesh] (e) mega-bundle P={MEGA['P']}, {MEGA['L']} landmarks, "
+        f"{len(li)} observations, {iters} LM iterations: 4 shards "
+        f"{mega[4][4] * 1e3:.2f} ms per iteration, peak device memory "
+        f"{mega[4][5]:.2f} GiB; 1 shard {mega[1][4] * 1e3:.2f} ms, "
+        f"{mega[1][5]:.2f} GiB; cost {mega[4][3]:.1f} -> {mega[4][2]:.4f} "
+        f"(1 shard {mega[1][2]:.4f}, {d_cost:.2e} relative), poses "
+        f"{d_pose:.2e} apart; B6 at {tuple(S.shape)} median of "
+        f"{TIMING_RUNS}: kernel {row_e['ms']:.4f} ms, plain "
+        f"{row_e['plain_ms']:.4f} ms, solve_ex {row_e['library_ms']:.4f} ms, "
+        f"bound {row_e['bound_ms']:.5f} ms, {launches_e} launches ({card})")
+
+    # ---- (f) one BA batch of KITTI 00's window count ------------------------
+    bc = cfg.bundle
+    calib_t = torch.tensor(scene.calib, device="cuda")
+    win = synthetic_windows(se3, stereo, calib_t, KITTI00_WINDOWS,
+                            bc.max_poses, bc.max_landmarks, bc.max_obs, SEED)
+    host = [x.cpu().numpy() for x in win]
+    step = sharded_ba.ba_training_step(mesh1, scene.calib, iters=bc.lm_iters)
+    n_poses = np.full(KITTI00_WINDOWS, bc.max_poses)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = step(*host, n_poses)
+    torch.cuda.synchronize()
+    wall_f = time.perf_counter() - t0
+    if not torch.isfinite(out[3]).all() or not (out[3] < out[4]).all():
+        fail("mesh (f): a window's cost is not finite or did not fall")
+    log(f"[mesh] (f) {KITTI00_WINDOWS} windows (P={bc.max_poses}, "
+        f"L={bc.max_landmarks}, M={bc.max_obs}) in one batch: "
+        f"{wall_f:.2f} s for 2 x {bc.lm_iters} LM iterations, peak device "
+        f"memory {(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} "
+        f"GiB above the {base / 2**30:.2f} GiB held before ({card})")
+    del win, out
+    return [row_d, row_e]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1965,6 +2303,9 @@ def main(argv=None) -> int:
                    ("mutual_nearest", "cholesky_solve"), "path orb", card)
     # ---- 4k. the sparse pose graph ------------------------------------------
     sparse_pg_phase(pipeline, ck, L, R, scene, cfg, main_path, card)
+    # ---- 4l. the mesh and overlap modes, the TP mega-bundle -----------------
+    at_tp = mesh_phase(pipeline, ck, ba, bundle, L, R, scene, cfg, main_path,
+                       card)
 
     # ---- 5. profile (optional) ---------------------------------------------
     if args.profile:
@@ -1990,6 +2331,8 @@ def main(argv=None) -> int:
         if k["name"] == "orientation_maps":
             k["launches_sift"] = sift_path["launches"]["orientation_maps"]
             k["at_sift_octaves"] = b3_sift
+        if k["name"] == "cholesky_solve":
+            k["at_tp"] = at_tp
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

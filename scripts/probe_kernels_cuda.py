@@ -8,9 +8,10 @@ What ``chip_smoke.py``'s event times around the wrappers cannot separate:
      path to the launch inside), the time per launch of 100 launches back
      to back (the host's time hidden behind the device's), and the
      kernel's own device time from a torch.profiler trace; then, from a
-     copy of its source with clock64() marks after each of its eight
+     copy of its source with clock64() marks after each of its ten
      barriers, the cycles of each phase in CTA 0 (load, diagonal blocks,
-     panels, trailing updates, each substitution's triangles and rows).
+     panels, trailing updates, each substitution's triangles and rows,
+     both passes summed, and the refinement's copy and residual).
   B2 (mutual_nearest) at the stereo shape (32, 2048, 2048, 128, the
      stereo window): the kernel's device time from a trace, and the event
      times of the C entry point (bf16 inputs, no casts) built from copies
@@ -71,9 +72,12 @@ from slam_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
 
 CSRC = ROOT / "slam_tpu_torch" / "csrc"
 OUT_DIR = ck.BUILD_DIR / "probe"
-B6_PHASES = ("load", "diagonal blocks", "panels", "trailing updates",
-             "forward triangles", "forward rows", "backward triangles",
-             "backward rows")
+# B6's barriers in source order: the substitutions' four (a function
+# called twice, so each sums the first solve's pass and the refinement's),
+# then the kernel body's
+B6_PHASES = ("forward triangles", "forward rows", "backward triangles",
+             "backward rows", "load", "diagonal blocks", "panels",
+             "trailing updates", "refinement copy", "refinement residual")
 B2_CUTS = {  # variant -> (text, replacement) pairs applied to the source
     "kernel": (),
     "no column reduction": (("if (dc < cbest[s]) {", "if (false) {"),),
@@ -103,14 +107,16 @@ def instrumented_b6() -> str:
     src = "\n".join(out)
     start = "  const float* Sb = S + (size_t)blockIdx.x * n * n;"
     assert src.count(start) == 1 and src.count("namespace {\n") == 1
-    src = src.replace(start, start + "\n  long long t_last = clock64();")
-    src = src.replace("namespace {\n",
-                      "namespace {\n__device__ long long prof[8];\n")
+    src = src.replace(start, start + "\n  if (blockIdx.x == 0 && threadIdx.x"
+                      " == 0) t_last = clock64();")
+    k = len(B6_PHASES)
+    src = src.replace("namespace {\n", f"namespace {{\n__device__ long long "
+                      f"prof[{k}];\n__device__ long long t_last;\n")
     return src + (
         '\nextern "C" int slam_prof(long long* h) { return (int)'
         'cudaMemcpyFromSymbol(h, prof, sizeof(prof)); }\n'
-        'extern "C" int slam_prof_reset() { long long z[8] = {0}; return '
-        '(int)cudaMemcpyToSymbol(prof, z, sizeof(z)); }\n')
+        f'extern "C" int slam_prof_reset() {{ long long z[{k}] = {{0}}; '
+        'return (int)cudaMemcpyToSymbol(prof, z, sizeof(z)); }\n')
 
 
 PROF_SLOTS = 32
@@ -296,7 +302,7 @@ def probe_b6(rec, card, gen, stream) -> None:
         for _ in range(cs.TIMING_RUNS):
             instrumented()
         torch.cuda.synchronize()
-        cyc = (ctypes.c_longlong * 8)()
+        cyc = (ctypes.c_longlong * len(B6_PHASES))()
         assert prof_lib.slam_prof(cyc) == 0
         r["cycles_cta0"] = {p: cyc[k] / cs.TIMING_RUNS
                             for k, p in enumerate(B6_PHASES)}

@@ -18,7 +18,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .models.bundle import BundleResult
+from .models.bundle import BundleBatch, BundleResult
 from .models.frontend import DescriptorBank, FrontendResult
 from .models.loop_closure import Closure
 from .models.pose_graph import PoseGraph
@@ -28,6 +28,8 @@ from .ops.cuda_kernels import resolve_device
 _FRONTEND_ARRAYS = ("xy", "valid", "links", "link_valid", "match_prev",
                     "match_dist", "inlier_prev", "T_rel", "T_w2c",
                     "num_inliers", "inlier_frac", "pose_ok")
+_BATCH_ARRAYS = ("poses0", "points0", "cam_idx", "lm_idx", "meas", "w",
+                 "n_poses", "frames", "track_of_lm")
 _BUNDLE_ARRAYS = ("poses", "points", "w", "cost", "cost0", "num_obs",
                   "rel_T", "rel_cov", "T_w2c_keyframes", "n_poses", "frames",
                   "track_of_lm", "meas", "cam_idx", "lm_idx", "points0")
@@ -59,6 +61,19 @@ def bundle_result(src) -> BundleResult:
     return BundleResult(keyframes=[int(k) for k in _get(src, "keyframes")],
                         obs_dropped=int(_get(src, "obs_dropped")),
                         obs_total=int(_get(src, "obs_total")), **arrays)
+
+
+def bundle_batch(src) -> BundleBatch:
+    """A port BundleBatch from the JAX package's, with its overflow specs
+    (the TP re-solve's inputs), so both packages can be fed one batch."""
+    return BundleBatch(
+        keyframes=[int(k) for k in _get(src, "keyframes")],
+        obs_dropped=int(_get(src, "obs_dropped")),
+        obs_total=int(_get(src, "obs_total")),
+        overflow=[{k: (int(v) if k == "bi" else np.array(v))
+                   for k, v in spec.items()}
+                  for spec in _get(src, "overflow")],
+        **{k: np.array(_get(src, k)) for k in _BATCH_ARRAYS})
 
 
 def track_store(src) -> TrackStore:

@@ -6,7 +6,9 @@
 //   S[b] = L L^T   right-looking Cholesky of the SPD (N, N) matrix, of
 //                  which only the lower triangle is read;
 //   L y = g[b]     forward substitution;
-//   L^T x = y      backward substitution; x[b] is written.
+//   L^T x = y      backward substitution;
+//   r = g[b] - S x in float64, L L^T d = r, and x + d is written to x[b]
+//                  (one step of refinement).
 // A pivot that is not positive, or not finite, fails the system: its row
 // of x is all NaN and the other rows are unaffected (torch.linalg.
 // cholesky_ex reports such a system in `info`, and the port's plain
@@ -57,6 +59,16 @@
 // as one warp per system: one block, and every barrier is a __syncwarp.
 // The dynamic shared memory attribute is set once per kernel and device
 // (launch.cuh).
+// The refinement: a float32 factor of an ill-conditioned system leaves
+// an error that depends on the order of the factor's sums, so the
+// kernel and cuSOLVER's pair, summing in other orders, land several
+// times apart on one system and either may be the worse. The residual
+// summed in float64 (S's lower triangle read again from global memory,
+// where the load left it in L2) and one more pair of substitutions with
+// the same factor take the error down by about cond(S) * 2^-24, to near
+// x's float32 rounding while that is well below 1; it costs N^2 float64
+// multiply-adds and the 2N steps of the substitutions again, next to the
+// factor's N^3 / 3.
 // Left for later work: fusing the landmark back-substitution
 // (ops/ba.py:_back_substitute) into the same launch.
 
@@ -84,10 +96,11 @@ __host__ __device__ constexpr int matrix_floats(int n) {
 }
 
 // the matrix, the transposed panel (NB rows), L11's transpose (NB x NB),
-// a column of L11, 1 / L_jj, the right-hand side, and the failure flag
+// a column of L11, 1 / L_jj, the right-hand side, the first solution,
+// and the failure flag
 __host__ __device__ constexpr size_t smem_bytes(int n) {
   return ((size_t)matrix_floats(n) + (size_t)NB * panel_stride(n) +
-          (size_t)NB * NB + NB + 2 * (size_t)n + 4) * sizeof(float);
+          (size_t)NB * NB + NB + 3 * (size_t)n + 4) * sizeof(float);
 }
 
 template <int T>
@@ -158,6 +171,66 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                : "memory");
 }
 
+// L L^T z = y in place (y in shared memory, L below A's diagonal and
+// 1 / L_jj in dinv), block by block: warp 0 solves the block's triangle
+// with shuffles, barrier, every thread applies the block to its row of
+// the remaining right-hand side, barrier. The last step (kb = 0) ends
+// on a barrier, so every thread sees z on return.
+template <int T>
+__device__ __forceinline__ void substitute(const float* A, int ld,
+                                           const float* dinv, float* y,
+                                           int n, int tid, int lane,
+                                           int warp) {
+  // L w = y, block by block
+  for (int kb = 0; kb < n; kb += NB) {
+    const int nb = min(NB, n - kb);
+    if (warp == 0) {
+      const float* Li = A + (kb + min(lane, nb - 1)) * ld + kb;  // row
+      float yi = lane < nb ? y[kb + lane] : 0.f;
+      for (int k = 0; k < nb; ++k) {  // selects, no divergent branches
+        const float yk = __shfl_sync(FULL, yi, k) * dinv[kb + k];
+        const float upd = yi - Li[k] * yk;
+        yi = lane == k ? yk : (lane > k ? upd : yi);
+      }
+      if (lane < nb) y[kb + lane] = yi;
+    }
+    barrier<T>();
+    if (kb + nb < n) {
+      for (int i = kb + nb + tid; i < n; i += T) {
+        float s = y[i];
+#pragma unroll 8
+        for (int k = 0; k < NB; ++k) s -= A[i * ld + kb + k] * y[kb + k];
+        y[i] = s;
+      }
+      barrier<T>();
+    }
+  }
+  // L^T z = w, block by block from the last
+  for (int kb = (n - 1) / NB * NB; kb >= 0; kb -= NB) {
+    const int nb = min(NB, n - kb);
+    if (warp == 0) {
+      const int li = min(lane, nb - 1);  // this lane's column
+      float zi = lane < nb ? y[kb + lane] : 0.f;
+      for (int k = nb - 1; k >= 0; --k) {  // selects, no divergent branches
+        const float xk = __shfl_sync(FULL, zi, k) * dinv[kb + k];
+        const float upd = zi - A[(kb + k) * ld + kb + li] * xk;
+        zi = lane == k ? xk : (lane < k ? upd : zi);
+      }
+      if (lane < nb) y[kb + lane] = zi;
+    }
+    barrier<T>();
+    if (kb > 0) {
+      for (int i = tid; i < kb; i += T) {
+        float s = y[i];
+#pragma unroll 8
+        for (int k = 0; k < nb; ++k) s -= A[(kb + k) * ld + i] * y[kb + k];
+        y[i] = s;
+      }
+      barrier<T>();
+    }
+  }
+}
+
 template <int T>
 __global__ void __launch_bounds__(T)
     cholesky_solve_kernel(const float* __restrict__ S,
@@ -171,7 +244,8 @@ __global__ void __launch_bounds__(T)
   float* col = Lt + NB * NB;   // one column of L11, in factor_diag
   float* dinv = col + NB;      // 1 / L_jj
   float* y = dinv + n;         // right-hand side, solved in place
-  int* failed = reinterpret_cast<int*>(y + n);
+  float* xs = y + n;           // the first solution, while it is refined
+  int* failed = reinterpret_cast<int*>(xs + n);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float* Sb = S + (size_t)blockIdx.x * n * n;
 
@@ -261,55 +335,23 @@ __global__ void __launch_bounds__(T)
     barrier<T>();
   }
 
-  // L y = g, block by block
-  for (int kb = 0; kb < n; kb += NB) {
-    const int nb = min(NB, n - kb);
-    if (warp == 0) {
-      const float* Li = A + (kb + min(lane, nb - 1)) * ld + kb;  // row
-      float yi = lane < nb ? y[kb + lane] : 0.f;
-      for (int k = 0; k < nb; ++k) {  // selects, no divergent branches
-        const float yk = __shfl_sync(FULL, yi, k) * dinv[kb + k];
-        const float upd = yi - Li[k] * yk;
-        yi = lane == k ? yk : (lane > k ? upd : yi);
-      }
-      if (lane < nb) y[kb + lane] = yi;
-    }
-    barrier<T>();
-    if (kb + nb < n) {
-      for (int i = kb + nb + tid; i < n; i += T) {
-        float s = y[i];
-#pragma unroll 8
-        for (int k = 0; k < NB; ++k) s -= A[i * ld + kb + k] * y[kb + k];
-        y[i] = s;
-      }
-      barrier<T>();
-    }
+  substitute<T>(A, ld, dinv, y, n, tid, lane, warp);
+  // one step of refinement: r = g - S x summed in float64 from S's lower
+  // triangle (read again from global memory, where the load left it in
+  // L2), then L L^T d = r with the same factor, and x + d is written
+  for (int i = tid; i < n; i += T) xs[i] = y[i];
+  barrier<T>();
+  for (int i = tid; i < n; i += T) {
+    double r = g[(size_t)blockIdx.x * n + i];
+    for (int j = 0; j <= i; ++j) r -= (double)Sb[i * n + j] * (double)xs[j];
+    for (int j = i + 1; j < n; ++j)
+      r -= (double)Sb[j * n + i] * (double)xs[j];
+    y[i] = (float)r;
   }
-  // L^T x = y, block by block from the last
-  for (int kb = (n - 1) / NB * NB; kb >= 0; kb -= NB) {
-    const int nb = min(NB, n - kb);
-    if (warp == 0) {
-      const int li = min(lane, nb - 1);  // this lane's column
-      float zi = lane < nb ? y[kb + lane] : 0.f;
-      for (int k = nb - 1; k >= 0; --k) {  // selects, no divergent branches
-        const float xk = __shfl_sync(FULL, zi, k) * dinv[kb + k];
-        const float upd = zi - A[(kb + k) * ld + kb + li] * xk;
-        zi = lane == k ? xk : (lane < k ? upd : zi);
-      }
-      if (lane < nb) y[kb + lane] = zi;
-    }
-    barrier<T>();
-    if (kb > 0) {
-      for (int i = tid; i < kb; i += T) {
-        float s = y[i];
-#pragma unroll 8
-        for (int k = 0; k < nb; ++k) s -= A[(kb + k) * ld + i] * y[kb + k];
-        y[i] = s;
-      }
-      barrier<T>();
-    }
-  }
-  for (int i = tid; i < n; i += T) x[(size_t)blockIdx.x * n + i] = y[i];
+  barrier<T>();
+  substitute<T>(A, ld, dinv, y, n, tid, lane, warp);
+  for (int i = tid; i < n; i += T)
+    x[(size_t)blockIdx.x * n + i] = xs[i] + y[i];
 }
 
 int max_n_once() {

@@ -5,28 +5,33 @@ Counterpart of ``slam_tpu/models/bundle.py``:
   1. host-side keyframe selection and window construction into one padded
      SoA batch (static capacities max_poses / max_landmarks / max_obs);
   2. one batched LM + Schur solve over all windows (ops/ba.py), in
-     ``device_batch`` groups padded with zero-weight dummy windows;
+     ``device_batch`` groups padded with zero-weight dummy windows, or
+     under a mesh in one group padded to a multiple of its shards;
   3. batched covariance extraction for the pose graph.
 
 The host functions (``select_keyframes``, ``build_windows``,
 ``init_landmarks``) are numpy copies of the JAX package's, whose module
 imports JAX. Windows that overflow the capacities are cut to the longest
-tracks, as the JAX package does without a mesh; its TP mega-bundle
-re-solve runs only with a mesh and is not ported.
+tracks; ``build_windows`` also records each one's full problem, which
+``run_bundles`` re-solves at full observation count on the landmark-
+sharded TP mega-bundle (parallel/tp_megabundle.py) when given a mesh. That
+re-solve prunes and weights as a dense window does and evaluates the
+covariances at the optimized landmarks, where the JAX package does
+neither (ROADMAP.md queue C).
 """
 
 from __future__ import annotations
 
 import warnings
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from ..config import BundleConfig, KeyframeConfig, SlamConfig
 from ..ops import ba
-from ..ops.cuda_kernels import resolve_device
 from ..ops.stereo import backproject_np
+from ..parallel.mesh import Mesh, stage_device
 from ..utils import metrics
 from .trackstore import NO_ID, TrackStore
 
@@ -97,6 +102,10 @@ class BundleBatch:
     keyframes: list[int]
     obs_dropped: int = 0    # observations cut by max_obs capacity
     obs_total: int = 0      # observations offered before the cut
+    # windows over max_obs / max_landmarks with their FULL (uncut)
+    # observation sets, the TP re-solve's inputs: one dict(bi, tracks,
+    # trs, frs, slots) each; not serialized
+    overflow: list = field(default_factory=list)
 
     @property
     def num_windows(self) -> int:
@@ -117,7 +126,9 @@ def build_windows(db: TrackStore, T_w2c: np.ndarray, keyframes: list[int],
     keyframe's camera, initial poses from the frontend chain, tracks with
     >= 2 observations in the window (the longest kept at capacity),
     landmarks initialized at their max-disparity observation (resolved by
-    :func:`init_landmarks`), weights 1/(sigma growth^distance)."""
+    :func:`init_landmarks`), weights 1/(sigma growth^distance). Each
+    window over a capacity also leaves its full problem in
+    ``overflow``."""
     B = len(keyframes) - 1
     P, L, M = cfg.max_poses, cfg.max_landmarks, cfg.max_obs
     poses0 = np.tile(np.eye(4, dtype=np.float32), (B, P, 1, 1))
@@ -139,6 +150,7 @@ def build_windows(db: TrackStore, T_w2c: np.ndarray, keyframes: list[int],
 
     total_obs_dropped = 0
     total_obs_offered = 0
+    overflow_specs = []
     for bi in range(B):
         k0, k1 = keyframes[bi], keyframes[bi + 1]
         if k1 - k0 > P - 1:
@@ -159,6 +171,13 @@ def build_windows(db: TrackStore, T_w2c: np.ndarray, keyframes: list[int],
         slots = slot_f[a:b][sub]
         uniq, counts = np.unique(trs, return_counts=True)
         good = uniq[counts >= 2]
+        if len(good) > L or int(counts[counts >= 2].sum()) > M:
+            # the window's full problem, before any capacity cut
+            keep_full = np.isin(trs, good)
+            overflow_specs.append({
+                "bi": bi, "tracks": good.copy(),
+                "trs": trs[keep_full].copy(), "frs": frs[keep_full].copy(),
+                "slots": slots[keep_full].copy()})
         if len(good) > L:  # keep the longest tracks
             c = counts[counts >= 2]
             good = good[np.argsort(-c)[:L]]
@@ -219,7 +238,8 @@ def build_windows(db: TrackStore, T_w2c: np.ndarray, keyframes: list[int],
         poses0=poses0, points0=points0, cam_idx=cam_idx, lm_idx=lm_idx,
         meas=meas, w=w, n_poses=n_poses, frames=frames_arr,
         track_of_lm=track_of_lm, keyframes=list(keyframes),
-        obs_dropped=int(total_obs_dropped), obs_total=int(total_obs_offered))
+        obs_dropped=int(total_obs_dropped), obs_total=int(total_obs_offered),
+        overflow=overflow_specs)
 
 
 def init_landmarks(batch: BundleBatch, calib) -> None:
@@ -266,54 +286,94 @@ class BundleResult:
     obs_total: int = 0
 
 
+WINDOW_INPUTS = ("poses0", "points0", "cam_idx", "lm_idx", "meas", "w")
+
+
+def window_inputs(batch: BundleBatch, s: int, e: int, length: int) -> tuple:
+    """Windows ``s:e`` of a batch as the step's host inputs (those of
+    ``WINDOW_INPUTS``, then ``n_poses``), padded to ``length`` windows
+    with copies of the last one that carry zero weight (no residual), so
+    that every slice of a run has one shape."""
+    pad = length - (e - s)
+
+    def sl(a):
+        x = a[s:e]
+        return np.concatenate([x, np.repeat(x[-1:], pad, axis=0)]) if pad \
+            else x
+
+    arrs = [sl(getattr(batch, k)) for k in WINDOW_INPUTS]
+    if pad:
+        arrs[-1][e - s:] = 0.0  # a fresh array: the batch's w is untouched
+    return (*arrs, sl(np.maximum(batch.n_poses, 1).astype(np.int64)))
+
+
+def window_step(calib, device: torch.device, iters: int = 20,
+                min_depth: float = 0.1, max_depth: float = 1000.0,
+                huber_delta: float = 0.0):
+    """The batched BA step on ``device``: fn(poses0, points0, cam_idx,
+    lm_idx, meas, w, n_poses) -> (poses, points, w, cost, cost0, rel_T,
+    rel_cov), host numpy in (as ``window_inputs`` gives it; uploaded from
+    pinned memory on the card), device tensors out, launched on the
+    current stream without waiting for the device. rel_T and rel_cov are
+    each window's last pose and its covariance."""
+    cuda = device.type == "cuda"
+    calib_t = torch.as_tensor(np.asarray(calib, np.float32), device=device)
+
+    def upload(a, dtype=None):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if dtype is not None:
+            t = t.to(dtype)
+        if cuda:
+            t = t.pin_memory()
+        return t.to(device, non_blocking=True)
+
+    def step(poses0, points0, cam_idx, lm_idx, meas, w, n_poses):
+        p0, x0, ms, ww = (upload(a) for a in (poses0, points0, meas, w))
+        ci, li = (upload(a, torch.int64) for a in (cam_idx, lm_idx))
+        cost0 = ba._cost(p0, x0, ci, li, ms, ww, calib_t)
+        poses, points, w2, cost = ba.optimize_bundle_pruned(
+            p0, x0, ci, li, ms, ww, calib_t, iters=iters,
+            min_depth=min_depth, max_depth=max_depth,
+            huber_delta=huber_delta)
+        covs = ba.pose_covariances(poses, points, ci, li, ms, w2, calib_t)
+        last = upload(np.asarray(n_poses) - 1, torch.int64)
+        b = torch.arange(poses.shape[0], device=device)
+        return (poses, points, w2, cost, cost0, poses[b, last],
+                covs[b, last])
+
+    return step
+
+
 def optimize_windows(batch: BundleBatch, calib,
                      cfg: BundleConfig = BundleConfig(),
-                     device_batch: int = 64, device="cuda") -> BundleResult:
-    """Optimize all windows with the batched LM solver in ``device_batch``
-    slices (the tail slice padded with zero-weight copies of its last
-    window, so every slice has one shape), then extract each window's
-    relative pose and covariance and chain the keyframe trajectory.
+                     device_batch: int = 64, mesh=None,
+                     device=None) -> BundleResult:
+    """Optimize all windows with the batched LM solver in slices of
+    ``device_batch`` (the tail slice padded with zero-weight copies of its
+    last window, so every slice has one shape), extracting each window's
+    relative pose and covariance, and chain the keyframe trajectory.
 
     Slices are pipelined as in the JAX package: slice s+1 is uploaded
     (from pinned host memory) and dispatched before slice s's results,
-    copied back into pinned memory behind an event, are taken in."""
-    device = resolve_device(device)
+    copied back into pinned memory behind an event, are taken in.
+
+    With ``mesh`` the slice is every window, padded to a multiple of the
+    mesh's shards (the JAX package's sharded BA, parallel/sharded_ba.py),
+    on the mesh's device; otherwise on ``device``, the card unless the
+    caller names the CPU."""
+    device = stage_device(mesh, device)
     cuda = device.type == "cuda"
-    calib_t = torch.from_numpy(np.asarray(calib, np.float32)).to(device)
     B = batch.num_windows
-    names = ("cost0", "poses", "points", "w", "cost", "covs")
-    parts = {k: [] for k in names}
+    size = B + (-B) % mesh.size if mesh is not None else min(device_batch, B)
+    step = window_step(calib, device, iters=cfg.lm_iters,
+                       min_depth=cfg.min_depth, max_depth=cfg.max_depth,
+                       huber_delta=cfg.huber_delta_px)
+    parts = []
 
     def submit(s):
-        e = min(s + device_batch, B)
-        pad = device_batch - (e - s) if B > device_batch else 0
-
-        def sl(a, dtype=None):
-            x = a[s:e]
-            if pad:
-                x = np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
-            t = torch.from_numpy(np.ascontiguousarray(x))
-            if dtype is not None:
-                t = t.to(dtype)
-            if cuda:
-                t = t.pin_memory()
-            return t.to(device, non_blocking=True)
-
-        p0, x0 = sl(batch.poses0), sl(batch.points0)
-        ci = sl(batch.cam_idx, torch.int64)
-        li = sl(batch.lm_idx, torch.int64)
-        ms, ww = sl(batch.meas), sl(batch.w)
-        if pad:
-            ww[e - s:] = 0.0  # dummy windows carry no residuals
-        poses, points, w2, cost = ba.optimize_bundle_pruned(
-            p0, x0, ci, li, ms, ww, calib_t, iters=cfg.lm_iters,
-            min_depth=cfg.min_depth, max_depth=cfg.max_depth,
-            huber_delta=cfg.huber_delta_px)
-        covs = ba.pose_covariances(poses, points, ci, li, ms, w2, calib_t)
-        cost0 = ba._cost(p0, x0, ci, li, ms, ww, calib_t)
-        n = e - s
+        n = min(s + size, B) - s
         host = [v[:n].to("cpu", non_blocking=True)
-                for v in (cost0, poses, points, w2, cost, covs)]
+                for v in step(*window_inputs(batch, s, s + n, size))]
         ready = None
         if cuda:
             ready = torch.cuda.Event()
@@ -324,37 +384,35 @@ def optimize_windows(batch: BundleBatch, calib,
         host, ready = pend
         if ready is not None:
             ready.synchronize()
-        for k, v in zip(names, host):
-            parts[k].append(v.numpy().copy())
+        parts.append([v.numpy().copy() for v in host])
 
     pend = None
-    for s in range(0, B, device_batch):
+    for s in range(0, B, size):
         cur = submit(s)
         if pend is not None:
             materialize(pend)
         pend = cur
     materialize(pend)
-    out = {k: np.concatenate(v) for k, v in parts.items()}
-    last = batch.n_poses - 1
-    rel_T = out["poses"][np.arange(B), last]
-    rel_cov = out["covs"][np.arange(B), last]
-    return _assemble_bundle_result(batch, out["poses"], out["points"],
-                                   out["w"], out["cost"], out["cost0"],
-                                   rel_T, rel_cov)
+    return _assemble_bundle_result(
+        batch, *(np.concatenate(f) for f in zip(*parts)))
+
+
+def _chain(rel_T: np.ndarray) -> np.ndarray:
+    """Keyframe poses (B + 1, 4, 4): T_w2c[kf_{i+1}] = rel_T[i] @
+    T_w2c[kf_i] from the identity."""
+    T_kf = np.zeros((rel_T.shape[0] + 1, 4, 4), np.float32)
+    T_kf[0] = np.eye(4)
+    for i in range(rel_T.shape[0]):
+        T_kf[i + 1] = rel_T[i] @ T_kf[i]
+    return T_kf
 
 
 def _assemble_bundle_result(batch, poses, points, w, cost, cost0, rel_T,
                             rel_cov) -> BundleResult:
-    B = batch.num_windows
-    # T_w2c[kf_{i+1}] = rel_T[i] @ T_w2c[kf_i]
-    T_kf = np.zeros((B + 1, 4, 4), np.float32)
-    T_kf[0] = np.eye(4)
-    for i in range(B):
-        T_kf[i + 1] = rel_T[i] @ T_kf[i]
     return BundleResult(
         poses=poses, points=points, w=w, cost=cost, cost0=cost0,
         num_obs=(w > 0).sum(axis=1), rel_T=rel_T, rel_cov=rel_cov,
-        T_w2c_keyframes=T_kf, keyframes=batch.keyframes,
+        T_w2c_keyframes=_chain(rel_T), keyframes=batch.keyframes,
         n_poses=batch.n_poses, frames=batch.frames,
         track_of_lm=batch.track_of_lm, meas=batch.meas,
         cam_idx=batch.cam_idx, lm_idx=batch.lm_idx,
@@ -396,18 +454,86 @@ def load_bundles(path) -> BundleResult:
             **{k: z[k] for k in _OPTIONAL if k in z.files})
 
 
+def overflow_problem(spec: dict, batch: BundleBatch, db: TrackStore, calib,
+                     cfg: BundleConfig):
+    """One overflowed window's full problem from its ``batch.overflow``
+    entry: (poses0 (n, 4, 4), points0 (L, 3), cam_idx, lm_idx, meas, w),
+    every landmark initialized as ``init_landmarks`` does (stereo
+    backprojection at its max-disparity observation, first row on ties)
+    and every weight 1 / meas_sigma_px."""
+    bi = spec["bi"]
+    n = int(batch.n_poses[bi])
+    poses0 = batch.poses0[bi, :n]
+    li = _rows_of(spec["trs"], spec["tracks"]).astype(np.int32)
+    ci = (spec["frs"] - batch.keyframes[bi]).astype(np.int32)
+    links = db.links[spec["frs"], spec["slots"]].astype(np.float32)
+    w = np.full(len(li), 1.0 / cfg.meas_sigma_px, np.float32)
+    disp = links[:, 0] - links[:, 1]
+    order = np.lexsort((-np.arange(len(li)), disp, li))
+    best = order[np.r_[li[order][1:] != li[order][:-1], True]]
+    pc = backproject_np(calib, links[best])
+    T = poses0[ci[best]]
+    pts0 = np.zeros((len(spec["tracks"]), 3), np.float32)
+    pts0[li[best]] = np.einsum("lji,lj->li", T[:, :3, :3],
+                               pc - T[:, :3, 3]).astype(np.float32)
+    return poses0, pts0, ci, li, links, w
+
+
+def reoptimize_overflow_tp(res: BundleResult, batch: BundleBatch,
+                           db: TrackStore, calib, cfg: BundleConfig,
+                           mesh: Mesh) -> BundleResult:
+    """Re-solve every capacity-overflowed window at its full observation
+    count on the landmark-sharded TP mega-bundle (parallel/
+    tp_megabundle.py), its landmarks over the mesh's shards, and put its
+    poses, rel_T, rel_cov, cost and active observation count in place of
+    the truncated solve's; then re-chain the keyframe trajectory.
+    ``res.points`` keeps the truncated solve's landmarks.
+
+    As a dense window: the depth gate and the Huber weights of
+    ``cfg`` (the JAX package's re-solve has neither), and the
+    covariances at the optimized landmarks and pruned weights (the JAX
+    package's are at the initial landmarks)."""
+    from ..parallel import tp_megabundle as tp
+
+    tp_mesh = Mesh(mesh.devices, "tp")
+    for name in ("poses", "rel_T", "rel_cov", "cost", "num_obs"):
+        setattr(res, name, np.array(getattr(res, name)))
+    for spec in batch.overflow:
+        bi, n = spec["bi"], int(batch.n_poses[spec["bi"]])
+        poses0, pts0, ci, li, links, w = overflow_problem(spec, batch, db,
+                                                          calib, cfg)
+        parts = tp.partition_megabundle(pts0, ci, li, links, w, mesh.size)
+        poses, X_sh, w_sh, cost = tp.optimize_megabundle_pruned(
+            tp_mesh, poses0, *parts, calib, iters=cfg.lm_iters,
+            min_depth=cfg.min_depth, max_depth=cfg.max_depth,
+            huber_delta=cfg.huber_delta_px)
+        covs = tp.megabundle_pose_covariances(
+            tp_mesh, poses, X_sh, parts[1], parts[2], parts[3], w_sh, calib)
+        res.poses[bi, :n] = poses
+        res.rel_T[bi] = poses[n - 1]
+        res.rel_cov[bi] = covs[n - 1]
+        res.cost[bi] = cost
+        res.num_obs[bi] = int((w_sh > 0).sum())
+    res.T_w2c_keyframes = _chain(res.rel_T)
+    return res
+
+
 def run_bundles(db: TrackStore, T_w2c: np.ndarray, calib,
                 cfg: SlamConfig = SlamConfig(), mesh=None,
-                device="cuda") -> BundleResult:
-    """Keyframes -> windows -> batched LM on ``device``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded bundles and the TP mega-bundle are still to be "
-            "ported (ROADMAP.md)")
+                device=None) -> BundleResult:
+    """Keyframes -> windows -> batched LM on ``device`` (the card unless
+    the caller names the CPU), or with ``mesh`` every window in one batch
+    on the mesh's device, and then, with ``cfg.bundle.tp_overflow``, every
+    capacity-overflowed window re-solved at full size on the TP
+    mega-bundle."""
     kfs = select_keyframes(db, T_w2c, cfg.keyframes)
     batch = build_windows(db, T_w2c, kfs, cfg.bundle)
     init_landmarks(batch, calib)
-    return optimize_windows(batch, calib, cfg.bundle, device=device)
+    res = optimize_windows(batch, calib, cfg.bundle, mesh=mesh,
+                           device=device)
+    if batch.overflow and mesh is not None and cfg.bundle.tp_overflow:
+        res = reoptimize_overflow_tp(res, batch, db, calib, cfg.bundle, mesh)
+    return res
 
 
 def frame_poses_from_bundles(res: BundleResult, num_frames: int) -> np.ndarray:

@@ -565,9 +565,12 @@ def _recompute_chunks(frames, cfg: SlamConfig, device, start: int,
 def run_frames(frames, calib, cfg: SlamConfig, device,
                checkpoint_path: str | None = None,
                checkpoint_every: int = 500,
-               resume: bool = False) -> FrontendResult:
+               resume: bool = False, on_chunk=None) -> FrontendResult:
     """The frontend over a frame source (``ArrayFrames``, or the PNG
     source of ``parallel.pipeline``), chunk by chunk on ``device``.
+    ``on_chunk(start, n, outputs, T_w2c)`` is called with each chunk's
+    host outputs as they are taken in, one chunk behind the device
+    (parallel/stage_overlap.py builds BA windows there).
 
     On the card the host and the device overlap: the next chunk is filled
     into one of two pinned staging buffer pairs (a pair is refilled only
@@ -641,6 +644,8 @@ def run_frames(frames, calib, cfg: SlamConfig, device,
         outs.append(o)
         seg_outs.append(o)
         seg_T.append(T_w2c)
+        if on_chunk is not None:
+            on_chunk(start_p, n_p, o, T_w2c)
         done = start_p + n_p
         # carry_p is the carry as of this chunk, not the live one, which
         # has moved past the chunk dispatched since

@@ -456,10 +456,11 @@ def cholesky_solve_plain(S: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 def cholesky_solve(S: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Kernel B6: S (B, N, N) float32 SPD (its lower triangle is read) and
-    g (B, N) float32 -> x (B, N) float32 with S x = g; a system whose
-    factorization meets a pivot that is not positive or not finite gets
-    an all-NaN row (pallas_kernels.cholesky_solve_lanes, which clamps such
-    a pivot instead). Raises ValueError for N above what one block's
+    g (B, N) float32 -> x (B, N) float32 with S x = g, refined once
+    against the residual summed in float64 (csrc/cholesky_solve.cu); a
+    system whose factorization meets a pivot that is not positive or not
+    finite gets an all-NaN row (pallas_kernels.cholesky_solve_lanes,
+    which clamps such a pivot instead). Raises ValueError for N above what one block's
     shared memory holds (``cholesky_max_n``, 221 on an H100). Besides
     the launch it makes no ctypes call."""
     _require(S.dim() == 3 and S.shape[1] == S.shape[2],

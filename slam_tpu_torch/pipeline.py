@@ -16,8 +16,14 @@ runs on ``device``. With ``cache_dir`` every stage's artifact is saved
 there in the JAX package's npz format and loaded instead of recomputed
 while the config, the input fingerprint and every upstream stage are
 unchanged; the frontend resumes from its incremental checkpoint there.
-The mesh and overlap modes keep their argument names and raise
-``NotImplementedError`` until they are ported (ROADMAP.md).
+
+With ``mesh`` (``parallel.mesh.make_mesh``) the frontend runs in steps
+of ``chunk_frames`` frames per shard, every BA window in one batch, and
+capacity-overflowed windows are re-solved at full size on the TP
+mega-bundle; with ``overlap`` as well, frontend and BA overlap on two
+CUDA streams (parallel/stage_overlap.py), timed as one stage,
+``frontend+bundles_overlapped``. Both need in-memory images, and neither
+reuses cached artifacts of the stages it runs.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ from .models import frontend as frontend_mod
 from .models import loop_closure as lc_mod
 from .models.pose_graph import PoseGraph
 from .models.trackstore import TrackStore
-from .ops.cuda_kernels import resolve_device
+from .parallel.mesh import stage_device
 from .utils import metrics
 
 
@@ -94,9 +100,10 @@ def run_pipeline(images_left, images_right, calib,
                  cfg: SlamConfig = SlamConfig(), cache_dir=None,
                  run_loop_closure: bool = True, verbose: bool = True,
                  mesh=None, overlap: bool = False, image_hw=None,
-                 device="cuda") -> PipelineResult:
+                 device=None) -> PipelineResult:
     """The full pipeline on ``device``: the card by default, where the
     kernels run (raises without one); ``"cpu"`` runs their plain versions.
+    With ``mesh`` every stage runs on the mesh's device.
 
     ``images_left`` / ``images_right`` are in-memory (F, H, W) arrays
     (uint8, or float32 in [0, 1]) or lists of PNG paths; with paths the
@@ -107,10 +114,10 @@ def run_pipeline(images_left, images_right, calib,
     config and input fingerprint match and every upstream stage was
     loaded too; the frontend reuses its own checkpoint there (a complete
     one makes it a pure load)."""
-    if mesh is not None or overlap:
-        raise NotImplementedError(
-            "mesh and overlap modes are still to be ported")
-    device = str(resolve_device(device))
+    from_disk = isinstance(images_left, (list, tuple))
+    if from_disk and (mesh is not None or overlap):
+        raise ValueError("mesh/overlap modes require in-memory image arrays")
+    device = str(stage_device(mesh, device))
     timings = {}
     log = print if verbose else (lambda *a, **k: None)
 
@@ -150,31 +157,48 @@ def run_pipeline(images_left, images_right, calib,
         return out
 
     ckpt = str(cache / "frontend_ckpt.npz") if cache is not None else None
-    if isinstance(images_left, (list, tuple)):
-        from .parallel.pipeline import run_frontend_pipelined
-        from .utils.kitti import _imread_gray
+    if mesh is not None:
+        reuse = False  # the mesh stages are recomputed, and all after them
+    if image_hw is not None and not from_disk:
+        from .utils.kitti import pad_to_bucket  # the path mode's buckets
 
-        if image_hw is None:
-            image_hw = _imread_gray(Path(images_left[0])).shape
-        fe = timed("frontend", lambda: run_frontend_pipelined(
-            list(images_left), list(images_right), image_hw, calib, cfg,
-            checkpoint_path=ckpt, resume=reuse, device=device))
+        images_left = pad_to_bucket(images_left, tuple(image_hw))
+        images_right = pad_to_bucket(images_right, tuple(image_hw))
+    if mesh is not None and overlap:
+        from .parallel.stage_overlap import run_pipeline_overlapped
+
+        fe, db, bundles = timed(
+            "frontend+bundles_overlapped", lambda: run_pipeline_overlapped(
+                images_left, images_right, calib, cfg, mesh=mesh))
+        if cache is not None:
+            db.save(cache / "trackstore.npz")
     else:
-        if image_hw is not None:  # the path mode's bucket semantics
-            from .utils.kitti import pad_to_bucket
+        if from_disk:
+            from .parallel.pipeline import run_frontend_pipelined
+            from .utils.kitti import _imread_gray
 
-            images_left = pad_to_bucket(images_left, tuple(image_hw))
-            images_right = pad_to_bucket(images_right, tuple(image_hw))
-        fe = timed("frontend", lambda: frontend_mod.run_frontend(
-            images_left, images_right, calib, cfg, device=device,
-            checkpoint_path=ckpt, resume=reuse))
-    db = stage("trackstore", "trackstore.npz",
-               lambda: TrackStore.from_frontend(fe), TrackStore.load,
-               lambda o, p: o.save(p))
-    bundles = stage("bundles", "bundles.npz",
-                    lambda: bundle_mod.run_bundles(db, fe.T_w2c, calib, cfg,
-                                                   device=device),
-                    bundle_mod.load_bundles, bundle_mod.save_bundles)
+            if image_hw is None:
+                image_hw = _imread_gray(Path(images_left[0])).shape
+            fe = timed("frontend", lambda: run_frontend_pipelined(
+                list(images_left), list(images_right), image_hw, calib, cfg,
+                checkpoint_path=ckpt, resume=reuse, device=device))
+        elif mesh is not None:
+            from .parallel.sharded_frontend import run_frontend_sharded
+
+            fe = timed("frontend", lambda: run_frontend_sharded(
+                images_left, images_right, calib, mesh, cfg))
+        else:
+            fe = timed("frontend", lambda: frontend_mod.run_frontend(
+                images_left, images_right, calib, cfg, device=device,
+                checkpoint_path=ckpt, resume=reuse))
+        db = stage("trackstore", "trackstore.npz",
+                   lambda: TrackStore.from_frontend(fe), TrackStore.load,
+                   lambda o, p: o.save(p))
+        bundles = stage("bundles", "bundles.npz",
+                        lambda: bundle_mod.run_bundles(
+                            db, fe.T_w2c, calib, cfg, mesh=mesh,
+                            device=device),
+                        bundle_mod.load_bundles, bundle_mod.save_bundles)
 
     def _pg():
         g = PoseGraph.from_bundles(bundles, device=device)

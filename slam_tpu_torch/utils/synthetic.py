@@ -556,3 +556,63 @@ def render_to_npy(scene: Scene, path_left, path_right, processes: int = 1,
             done += fut.result()
             if progress is not None:
                 progress(done, F)
+
+
+# ---------------------------------------------------------------------------
+# one bundle-adjustment problem (no images)
+# ---------------------------------------------------------------------------
+
+def megaproblem(calib, P: int, L: int, obs_per_lm: int, seed: int,
+                noise_px: float = 0.3):
+    """One bundle as the JAX package's ``tests/test_tp_megabundle.py``
+    builds it, in numpy from ``seed``: P poses along that test's 6.3 m
+    path (its 8 poses 0.9 m apart, slightly turning; a larger P samples
+    the same path more densely, where poses 0.9 m apart would leave the
+    landmarks behind the later cameras and the reduced system too
+    ill-conditioned for float32), L landmarks 8-48 m ahead, each seen by
+    ``obs_per_lm`` random cameras with ``noise_px`` of stereo noise
+    (weight 0 where the landmark lies within 0.5 m of the camera plane or
+    behind it), the initial poses perturbed by ~0.015 per twist entry
+    (pose 0 exact) and the landmarks by 0.15 m. Returns float32 / int32
+    arrays (poses_gt, points_gt, poses0, points0, cam_idx, lm_idx, meas,
+    w)."""
+    import torch
+
+    from ..ops import se3, stereo
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(P, dtype=np.float32) * (7.0 / (P - 1))
+    xi = np.stack([np.zeros_like(t), 0.02 * t, np.zeros_like(t),
+                   0.1 * t, np.zeros_like(t), -0.9 * t], -1)
+    poses_gt = se3.se3_exp(torch.as_tensor(xi))
+    u = rng.uniform(size=(L, 3)).astype(np.float32)
+    points_gt = np.stack([(u[:, 0] - 0.5) * 24.0, (u[:, 1] - 0.5) * 6.0,
+                          8.0 + u[:, 2] * 40.0], -1)
+    lm_idx = np.repeat(np.arange(L), obs_per_lm).astype(np.int32)
+    cam_idx = rng.integers(0, P, size=L * obs_per_lm).astype(np.int32)
+    T = poses_gt[torch.as_tensor(cam_idx).long()]
+    Xc = se3.mv3(T[:, :3, :3], torch.as_tensor(points_gt[lm_idx])) \
+        + T[:, :3, 3]
+    meas = (stereo.project(torch.as_tensor(calib, dtype=torch.float32),
+                           Xc).numpy()
+            + noise_px * rng.standard_normal((len(lm_idx), 3))
+            ).astype(np.float32)
+    w = (Xc[:, 2] > 0.5).numpy().astype(np.float32)
+    dpose = 0.015 * rng.standard_normal((P, 6)).astype(np.float32)
+    dpose[0] = 0.0
+    poses0 = se3.retract(poses_gt, torch.as_tensor(dpose)).numpy()
+    points0 = (points_gt + 0.15 * rng.standard_normal((L, 3))).astype(
+        np.float32)
+    return (poses_gt.numpy(), points_gt, poses0, points0, cam_idx, lm_idx,
+            meas, w)
+
+
+def twist_err(A, B) -> float:
+    """Largest norm of log(A_p^-1 B_p) over two pose stacks (float64)."""
+    import torch
+
+    from ..ops import se3
+
+    d = se3.local(torch.as_tensor(np.array(A), dtype=torch.float64),
+                  torch.as_tensor(np.array(B), dtype=torch.float64))
+    return float(torch.linalg.vector_norm(d, dim=-1).max())

@@ -161,9 +161,10 @@ def blocked_cholesky_solve(S, g, nb):
     solved against the block row by row, 1 / L_jj first; the trailing
     lower triangle updated by one nb-long sum of products per entry. Then
     both substitutions block by block: the diagonal triangle step by step,
-    the rest of the right-hand side by one nb-long sum per row. A system
-    with a pivot that is not positive or not finite gets an all-NaN row."""
-    y = g.clone()
+    the rest of the right-hand side by one nb-long sum per row; then one
+    step of refinement: the residual g - S x summed in float64, solved
+    with the same factor and added. A system with a pivot that is not
+    positive or not finite gets an all-NaN row."""
     B, N = g.shape
     A = torch.tril(S)
     dinv = torch.zeros((B, N))
@@ -184,18 +185,28 @@ def blocked_cholesky_solve(S, g, nb):
             A[:, e:, j + 1:e] -= A[:, e:, j, None] * A[:, None, j + 1:e, j]
         L21 = A[:, e:, kb:e]
         A[:, e:, e:] -= torch.tril(L21 @ L21.transpose(1, 2))
-    for kb, e in blocks:
-        for k in range(kb, e):
-            y[:, k] *= dinv[:, k]
-            y[:, k + 1:e] -= A[:, k + 1:e, k] * y[:, k, None]
-        y[:, e:] -= (A[:, e:, kb:e] @ y[:, kb:e, None])[..., 0]
-    for kb, e in reversed(blocks):
-        for k in reversed(range(kb, e)):
-            y[:, k] *= dinv[:, k]
-            y[:, kb:k] -= A[:, k, kb:k] * y[:, k, None]
-        y[:, :kb] -= (A[:, kb:e, :kb].transpose(1, 2)
-                      @ y[:, kb:e, None])[..., 0]
-    return torch.where(failed[:, None], float("nan"), y)
+
+    def substitute(y):
+        y = y.clone()
+        for kb, e in blocks:
+            for k in range(kb, e):
+                y[:, k] *= dinv[:, k]
+                y[:, k + 1:e] -= A[:, k + 1:e, k] * y[:, k, None]
+            y[:, e:] -= (A[:, e:, kb:e] @ y[:, kb:e, None])[..., 0]
+        for kb, e in reversed(blocks):
+            for k in reversed(range(kb, e)):
+                y[:, k] *= dinv[:, k]
+                y[:, kb:k] -= A[:, k, kb:k] * y[:, k, None]
+            y[:, :kb] -= (A[:, kb:e, :kb].transpose(1, 2)
+                          @ y[:, kb:e, None])[..., 0]
+        return y
+
+    x = substitute(g)
+    S64 = torch.tril(S).double()
+    S64 = S64 + torch.tril(S64, -1).transpose(1, 2)
+    r = g.double() - (S64 @ x.double()[..., None])[..., 0]
+    x = x + substitute(r.float())
+    return torch.where(failed[:, None], float("nan"), x)
 
 
 _PALLAS = {}
@@ -225,6 +236,25 @@ def test_blocked_schedule_matches_pallas_and_float64(N, nb):
     assert np.isfinite(x.numpy()).all()
     assert e <= 4.0 * rel_err(x_plain.numpy(), ref) + 1e-6
     assert e <= 4.0 * rel_err(pallas_solve(S, g), ref) + 1e-6
+
+
+@pytest.mark.parametrize("cond", [1e3, 1e4, 1e5])
+def test_blocked_schedule_refines_ill_conditioned(cond):
+    """On SPD systems of N = 144 with eigenvalues spread over ``cond``
+    (seeded), the schedule's refined solution is at least 20x nearer the
+    float64 solve than the plain float32 version's, which is off by
+    roughly cond * 2^-24 (one step of refinement takes the error down by
+    that factor again)."""
+    rng = np.random.default_rng(13)
+    Q = np.linalg.qr(rng.standard_normal((4, 144, 144)))[0]
+    lam = np.logspace(0, np.log10(cond), 144)
+    S = ((Q * lam) @ Q.transpose(0, 2, 1)).astype(np.float32)
+    g = rng.standard_normal((4, 144)).astype(np.float32)
+    ref = np.linalg.solve(S.astype(np.float64),
+                          g.astype(np.float64)[..., None])[..., 0]
+    x = blocked_cholesky_solve(torch.as_tensor(S), torch.as_tensor(g), 32)
+    x_plain = ck.cholesky_solve(torch.as_tensor(S), torch.as_tensor(g))
+    assert rel_err(x.numpy(), ref) <= rel_err(x_plain.numpy(), ref) / 20
 
 
 @pytest.mark.parametrize("nb", [16, 32])

@@ -156,16 +156,55 @@ def test_port_scene_generator():
     assert L.dtype == np.float32 and 0.0 <= L.min() and L.max() <= 1.0
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"overlap": True}])
-def test_unported_options_raise(kwargs):
-    imgs = np.zeros((2, 96, 160), np.float32)
-    with pytest.raises(NotImplementedError):
-        pipeline.run_pipeline(imgs, imgs, synthetic.KITTI_CALIB, CFG,
+@pytest.fixture(scope="module")
+def small_scene():
+    """16 frames of 128x256 driving straight (the port's generator)."""
+    scene = synthetic.make_scene(seed=2, num_frames=16, num_landmarks=2000,
+                                 hw=(128, 256), step_m=0.8)
+    return synthetic.render_sequence(scene) + (scene,)
+
+
+@pytest.mark.parametrize("n_shards, overlap", [(1, False), (8, False),
+                                               (8, True), (None, True)])
+def test_mesh_and_overlap_run_on_the_cpu(small_scene, n_shards, overlap):
+    """run_pipeline with a mesh on the CPU (1 or 8 shards), overlapped
+    or not: it runs end to end on the mesh's device and tracks (frontend
+    ATE under 0.5 m); overlap alone, without a mesh, is the sequential
+    pipeline, as in the JAX package; the overlapped stages are timed as
+    one."""
+    from slam_tpu_torch.parallel.mesh import make_mesh
+
+    L, R, scene = small_scene
+    cfg = dataclasses.replace(CFG, runtime=RuntimeConfig(chunk_frames=2))
+    mesh = None if n_shards is None else make_mesh(n_shards, device="cpu")
+    res = pipeline.run_pipeline(L, R, scene.calib, cfg, verbose=False,
+                                mesh=mesh, overlap=overlap,
+                                device=None if mesh else "cpu")
+    ev = pipeline.evaluate(res, scene.T_w2c)
+    assert ev["frontend"]["ate_rmse_m"] < 0.5
+    assert np.isfinite(res.bundles.rel_T).all()
+    merged = overlap and mesh is not None
+    assert ("frontend+bundles_overlapped" in res.timings) == merged
+    assert ("frontend" in res.timings) == (not merged)
+
+
+@pytest.mark.parametrize("kwargs", [{"mesh": "1 shard"}, {"overlap": True}])
+def test_mesh_or_overlap_with_path_lists_raise(kwargs, tmp_path):
+    """Path lists (a sequence on disk) with a mesh or overlap raise
+    ValueError, as in the JAX package."""
+    from slam_tpu_torch.parallel.mesh import make_mesh
+
+    if "mesh" in kwargs:
+        kwargs = {"mesh": make_mesh(device="cpu")}
+    paths = [str(tmp_path / f"{i:06d}.png") for i in range(2)]
+    with pytest.raises(ValueError, match="in-memory image arrays"):
+        pipeline.run_pipeline(paths, paths, synthetic.KITTI_CALIB, CFG,
                               verbose=False, device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("entry", ["run_pipeline", "run_frontend", "cli",
-                                   "scale_run", "pnp_trajectory_from_db"])
+                                   "scale_run", "pnp_trajectory_from_db",
+                                   "make_mesh"])
 def test_default_device_is_the_card(entry, monkeypatch, tmp_path):
     """Called without a device (the CLI and the scale run without
     --cpu), the entry points run on the card; with no card they raise
@@ -175,6 +214,7 @@ def test_default_device_is_the_card(entry, monkeypatch, tmp_path):
     from slam_tpu_torch import scale_run
     from slam_tpu_torch.__main__ import main as cli_main
     from slam_tpu_torch.models import db_odometry, frontend
+    from slam_tpu_torch.parallel.mesh import make_mesh
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     imgs = np.zeros((2, 96, 160), np.float32)
@@ -192,6 +232,7 @@ def test_default_device_is_the_card(entry, monkeypatch, tmp_path):
         "scale_run": lambda: scale_run.main(["--frames", "4"] + out),
         "pnp_trajectory_from_db": lambda: db_odometry.pnp_trajectory_from_db(
             db, synthetic.KITTI_CALIB),
+        "make_mesh": lambda: make_mesh(4),
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA card"):
         call()
@@ -244,6 +285,17 @@ with tempfile.TemporaryDirectory() as tmp:
                  str(Path(tmp) / "cfg.json"), "--out",
                  str(Path(tmp) / "cli")]) == 0
     assert (Path(tmp) / "cli" / "00" / "graphs" / "analysis.json").exists()
+# the mesh and overlap modes and the TP mega-bundle
+from slam_tpu_torch.parallel.mesh import make_mesh
+from slam_tpu_torch.parallel import tp_megabundle
+for kw in ({"mesh": make_mesh(2, device="cpu")},
+           {"mesh": make_mesh(2, device="cpu"), "overlap": True}):
+    pipeline.run_pipeline(L, R, scene.calib, cfg, verbose=False, **kw)
+tp_megabundle.optimize_megabundle_pruned(
+    make_mesh(2, axis="tp", device="cpu"), np.tile(np.eye(4), (3, 1, 1)),
+    *tp_megabundle.partition_megabundle(
+        np.ones((8, 3)) * [0, 0, 10], np.arange(16) % 3, np.arange(16) // 2,
+        np.ones((16, 3)), np.ones(16), 2), scene.calib, iters=2)
 import slam_tpu_torch.scale_run, slam_tpu_torch.runtime.tsan
 import slam_tpu_torch.models.db_odometry, slam_tpu_torch.models.covgraph
 import slam_tpu_torch.ops.triangulation, slam_tpu_torch.convert
@@ -270,8 +322,9 @@ def test_port_never_imports_jax():
     """The port's whole slice, on a tiny scene, in a fresh interpreter, in
     memory and from PNG files on disk (KITTI IO, the native runtime, the
     prefetcher, the stage cache, a checkpoint resume), then the CLI on the
-    CPU with its analysis, the SIFT and ORB detectors and the sparse pose
-    graph, and every other module imported: afterwards no
+    CPU with its analysis, the mesh and overlap modes and the TP
+    mega-bundle, the SIFT and ORB detectors and the sparse pose graph, and
+    every other module imported: afterwards no
     module of JAX nor any module of the JAX package (``slam_tpu`` or
     ``slam_tpu.*``) is loaded."""
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
@@ -317,7 +370,12 @@ def test_port_sources_import_nothing_of_jax():
             "slam_tpu_torch/models/covgraph.py",
             "slam_tpu_torch/ops/triangulation.py",
             "slam_tpu_torch/ops/sift.py", "slam_tpu_torch/ops/orb.py",
-            "slam_tpu_torch/ops/pg_sparse.py"} <= names
+            "slam_tpu_torch/ops/pg_sparse.py",
+            "slam_tpu_torch/parallel/mesh.py",
+            "slam_tpu_torch/parallel/sharded_ba.py",
+            "slam_tpu_torch/parallel/sharded_frontend.py",
+            "slam_tpu_torch/parallel/tp_megabundle.py",
+            "slam_tpu_torch/parallel/stage_overlap.py"} <= names
     assert [f for p in files for f in foreign_imports(p)] == []
 
 
