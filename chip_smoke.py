@@ -164,6 +164,21 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      ms per LM iteration and peak device memory, and B6 against its plain
      version on every (1, 144, 144) reduced system of a 4-shard run; (f) one BA batch of
      KITTI 00's 651 windows at full capacity: seconds and peak memory;
+  4m. the mesh over ranks (`[mesh ranks]` lines), each rank a process of
+     its own (slam_tpu_torch.parallel.ranks.spawn, a file:// rendezvous,
+     every group joined within 300 s or killed): (a) the port's
+     dryrun_multichip in 4 gloo ranks sharing the card (rank 0's line);
+     (b) in the same ranks 4l (e)'s mega-bundle, one shard per rank,
+     against the one-process 4-shard mesh: poses within 1e-6 and cost
+     within 1e-9 relative, ms per LM iteration and peak device memory per
+     rank, B6 launched in every rank; (c) run_pipeline(mesh=make_mesh())
+     in 2 gloo ranks with chunk_frames=32 (steps of 64 frames, as 4l (b)'s)
+     against 4l (b): keypoints and matches equal, the same keyframes,
+     rel_T within SLICE_TOL, every ATE within 0.01 m, and B1, B2 and B6
+     launched in each rank with no plain call; (d) where the host has
+     more than one card, (a) and (b) over nccl with one rank per card and
+     B1, B2 and B6 on cuda:1 against their plain versions; otherwise a
+     line says it was not run and why;
   5. with --profile DIR: one more warm run of the main path, and one
      each of the AKAZE, the SIFT and the ORB path, under torch.profiler;
      wall time, device busy time (union of the device events' intervals)
@@ -223,7 +238,7 @@ def fail(msg: str) -> None:
 
 def sync(t: torch.Tensor) -> None:
     if t.is_cuda:
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(t.device)
 
 
 def median_ms(fn, runs: int = TIMING_RUNS) -> float:
@@ -1529,13 +1544,13 @@ KITTI00_WINDOWS = 651
 
 
 def mesh_phase(pipeline, ck, ba, bundle, L, R, scene, cfg, main_path,
-               card) -> dict:
+               card) -> tuple:
     """Phase 4l: (a) run_pipeline on a 1-shard mesh, (b) on 4 shards with
     chunk_frames=16, (c) overlap=True, (d) the TP overflow re-solve, (e) a
     mega-bundle on 4 shards and on 1, (f) one BA batch of KITTI 00's
     window count. Returns B6's rows at the TP shapes of (d) and (e): each
     with its launches in that run, and its error and times on one of the
-    systems that run solved."""
+    systems that run solved; and (b)'s drive_path record."""
     import dataclasses
 
     from slam_tpu_torch.config import BundleConfig, RuntimeConfig
@@ -1823,7 +1838,260 @@ def mesh_phase(pipeline, ck, ba, bundle, L, R, scene, cfg, main_path,
         f"memory {(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} "
         f"GiB above the {base / 2**30:.2f} GiB held before ({card})")
     del win, out
-    return [row_d, row_e]
+    return [row_d, row_e], b
+
+
+# phase 4m: the mesh over ranks, each rank a process of its own. (a) and
+# (b) run in one group of MESH_RANKS ranks, (c) in one of 2; every group is
+# joined within RANKS_JOIN_S seconds, or killed and the phase failed
+MESH_RANKS = 4
+RANKS_JOIN_S = 300.0
+RANK_POSE_TOL, RANK_COST_TOL = 1e-6, 1e-9
+# what (c) holds equal to 4l (b)'s: keypoints and matches
+RANK_FE_ARRAYS = ("xy", "valid", "links", "link_valid", "match_prev")
+
+
+def ranks_ab(mega, calib, iters: int, backend: str) -> dict:
+    """One rank of phase 4m (a) and (b): the dry run's checks in this
+    rank's process group, then 4l (e)'s mega-bundle on one shard per rank
+    (a warm-up of one iteration, then ``iters`` with the launch counters
+    zeroed just before): its poses and costs, ms per LM iteration, peak
+    device memory and launches; then the ms of one LM iteration's two
+    all_sums alone (the system's four float64 tensors, the cost),
+    drained before and after, median of 20."""
+    from slam_tpu_torch.ops import cuda_kernels as ck
+    from slam_tpu_torch.parallel import tp_megabundle as tp
+    from slam_tpu_torch.parallel.dryrun import dryrun_multichip
+    from slam_tpu_torch.parallel.mesh import all_sum, make_mesh
+
+    t0 = time.perf_counter()
+    line = dryrun_multichip(torch.distributed.get_world_size(), backend)
+    dry_s = time.perf_counter() - t0
+    _, _, p0, x0, ci, li, ms, w = mega
+    m = make_mesh(axis="tp")
+    parts = tp.partition_megabundle(x0, ci, li, ms, w, m.size)
+    tp.optimize_megabundle(m, p0, *parts, calib, iters=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_counters()
+    t0 = time.perf_counter()
+    poses, _, cost, cost0 = tp.optimize_megabundle(m, p0, *parts, calib,
+                                                   iters=iters)
+    torch.cuda.synchronize()
+    ms_iter = (time.perf_counter() - t0) / iters * 1e3
+    P6 = 6 * p0.shape[0]
+    system = [torch.ones(shape, dtype=torch.float64, device=m.device)
+              for shape in ((1, P6 // 6, 6, 6), (1, P6 // 6, 6),
+                            (1, P6, P6), (1, P6), (1,))]
+    sums = []
+    for _ in range(21):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_sum(m, *system[:4])
+        all_sum(m, system[4])
+        torch.cuda.synchronize()
+        sums.append((time.perf_counter() - t0) * 1e3)
+    return {"line": line, "dry_s": dry_s, "device": str(m.device),
+            "poses": poses, "cost": cost, "cost0": cost0, "ms": ms_iter,
+            "all_sum_ms": float(np.median(sums[1:])),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": dict(ck.LAUNCHES), "plain": dict(ck.PLAIN_CALLS)}
+
+
+def ranks_path(paths, calib, T_gt, cfg) -> dict:
+    """One rank of phase 4m (c): run_pipeline(mesh=make_mesh()) on the
+    scene (its images from ``paths``), once to warm up (a fresh process:
+    the card's context, cuDNN / cuBLAS handles, the allocator), then
+    with the launch counters zeroed just before it and read just after;
+    the frontend's keypoints and matches, the windows' rel_T, the
+    closures and every stage's ATE."""
+    from slam_tpu_torch import pipeline
+    from slam_tpu_torch.ops import cuda_kernels as ck
+    from slam_tpu_torch.parallel.mesh import make_mesh
+
+    L, R = (np.load(p) for p in paths)
+    mesh = make_mesh()
+    t0 = time.perf_counter()
+    pipeline.run_pipeline(L, R, calib, cfg, verbose=False, mesh=mesh)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    ck.reset_counters()
+    t0 = time.perf_counter()
+    res = pipeline.run_pipeline(L, R, calib, cfg, verbose=False, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(ck.LAUNCHES), dict(ck.PLAIN_CALLS)
+    report = pipeline.evaluate(res, T_gt)
+    fe = res.frontend
+    return {"device": str(mesh.device), "wall": wall, "cold": cold,
+            "timings": res.timings, "launches": launches, "plain": plain,
+            "ates": {k: report[k]["ate_rmse_m"] for k in (
+                "frontend", "bundles_kf", "pose_graph_kf",
+                "pose_graph_lc_kf") if k in report},
+            "closures": [(c.frame_i, c.frame_j) for c in res.closures],
+            "keyframes": res.bundles.keyframes, "rel_T": res.bundles.rel_T,
+            **{k: getattr(fe, k) for k in RANK_FE_ARRAYS}}
+
+
+def mega_in_process(tp, make_mesh, mega, calib, n: int, iters: int):
+    """4l (e)'s mega-bundle on a one-process n-shard mesh: (poses, cost,
+    ms per LM iteration), after a warm-up of one iteration."""
+    _, _, p0, x0, ci, li, ms, w = mega
+    m = make_mesh(n, axis="tp")
+    parts = tp.partition_megabundle(x0, ci, li, ms, w, n)
+    tp.optimize_megabundle(m, p0, *parts, calib, iters=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    poses, _, cost, _ = tp.optimize_megabundle(m, p0, *parts, calib,
+                                               iters=iters)
+    torch.cuda.synchronize()
+    return poses, cost, (time.perf_counter() - t0) / iters * 1e3
+
+
+def check_ranks_ab(ab, ref, n: int, backend: str, card: str) -> None:
+    """Phase 4m (a) and (b) of ``ranks_ab``'s results on n ranks against
+    the one-process n-shard mesh's ``ref``."""
+    from slam_tpu_torch.utils import synthetic
+
+    poses, cost, ms = ref
+    devices = sorted({r["device"] for r in ab})
+    log(f"[mesh ranks] (a) {n} {backend} ranks on {devices}: rank 0's "
+        f"line: {ab[0]['line']} ({ab[0]['dry_s']:.1f} s in the ranks) "
+        f"({card})")
+    for r, out in enumerate(ab):
+        d_pose = synthetic.twist_err(out["poses"], poses)
+        d_cost = abs(out["cost"] - cost) / cost
+        if not (d_pose <= RANK_POSE_TOL and d_cost <= RANK_COST_TOL):
+            fail(f"mesh ranks (b) {backend}, rank {r}: poses {d_pose:.3e} "
+                 f"from the one-process {n}-shard mesh's (limit "
+                 f"{RANK_POSE_TOL}), cost {d_cost:.3e} relative (limit "
+                 f"{RANK_COST_TOL})")
+        if not out["launches"]["cholesky_solve"] or any(
+                out["plain"].values()):
+            fail(f"mesh ranks (b) {backend}, rank {r}: B6 launches "
+                 f"{out['launches']['cholesky_solve']}, plain calls "
+                 f"{out['plain']}")
+        log(f"[mesh ranks] (b) {backend} rank {r} on {out['device']}: "
+            f"{out['ms']:.2f} ms per LM iteration (its two all_sums alone "
+            f"{out['all_sum_ms']:.3f} ms), peak device memory "
+            f"{out['peak_gib']:.3f} GiB, cost {out['cost0']:.1f} -> "
+            f"{out['cost']:.4f}, poses {d_pose:.2e} and cost {d_cost:.2e} "
+            f"relative from the one-process {n}-shard mesh's, B6 launches "
+            f"{out['launches']['cholesky_solve']} ({card})")
+    log(f"[mesh ranks] (b) {MEGA['L']} landmarks, {MEGA['iters']} LM "
+        f"iterations: {n} {backend} ranks "
+        f"{max(r['ms'] for r in ab):.2f} ms per iteration (slowest rank), "
+        f"one process with {n} shards {ms:.2f} ms ({card})")
+
+
+def nccl_ranks(ck, mega, calib, frames, card) -> str:
+    """Phase 4m (d), on a host with more than one card: (a) and (b) over
+    nccl with one rank per card (at most MESH_RANKS), (b) against the
+    one-process mesh of as many shards; then B1 on ``frames``, B2 and B6
+    on cuda:1 against their plain versions there. Returns the note for
+    the phase's last line."""
+    from slam_tpu_torch.parallel import ranks
+    from slam_tpu_torch.parallel import tp_megabundle as tp
+    from slam_tpu_torch.parallel.mesh import make_mesh
+
+    n = min(MESH_RANKS, torch.cuda.device_count())
+    ref = mega_in_process(tp, make_mesh, mega, calib, n, MEGA["iters"])
+    t0 = time.perf_counter()
+    d = ranks.spawn(ranks_ab, n, "nccl", "cuda",
+                    args=(mega, calib, MEGA["iters"], "nccl"),
+                    timeout=RANKS_JOIN_S)
+    wall = time.perf_counter() - t0
+    check_ranks_ab(d, ref, n, "nccl", card)
+    dev1 = torch.device("cuda", 1)
+    gen = torch.Generator(device=dev1)
+    gen.manual_seed(SEED)
+    check_b1(ck, torch.as_tensor(frames, device=dev1), "on cuda:1")
+    check_b2(ck, b2_inputs(gen, 4, 2048, 2048), None, "on cuda:1")
+    check_b6(ck, *spd_systems(gen, 64, 144), "on cuda:1")
+    return f"run: {n} nccl ranks on {n} cards in {wall:.1f} s"
+
+
+def mesh_ranks_phase(ck, L, R, scene, cfg, mesh_b, card, tmp) -> None:
+    """Phase 4m: (a) the dry run and (b) 4l (e)'s mega-bundle on
+    MESH_RANKS gloo ranks sharing the card, (b) held against the
+    one-process mesh of as many shards; (c) run_pipeline(mesh=make_mesh())
+    on 2 gloo ranks (steps of 2 x 32 frames, 4l (b)'s 64) held against
+    4l (b)'s one-process 4-shard mesh; (d) over nccl, one rank per card,
+    and the kernels on cuda:1, where the host has more than one card."""
+    import dataclasses
+
+    from slam_tpu_torch.config import RuntimeConfig
+    from slam_tpu_torch.parallel import ranks
+    from slam_tpu_torch.parallel import tp_megabundle as tp
+    from slam_tpu_torch.parallel.mesh import make_mesh
+    from slam_tpu_torch.utils import synthetic
+
+    mega = synthetic.megaproblem(scene.calib, MEGA["P"], MEGA["L"],
+                                 MEGA["obs_per_lm"], SEED)
+    iters = MEGA["iters"]
+    ref4 = mega_in_process(tp, make_mesh, mega, scene.calib, MESH_RANKS,
+                           iters)
+    t0 = time.perf_counter()
+    ab = ranks.spawn(ranks_ab, MESH_RANKS, "gloo", "cuda",
+                     args=(mega, scene.calib, iters, "gloo"),
+                     timeout=RANKS_JOIN_S)
+    wall_ab = time.perf_counter() - t0
+    check_ranks_ab(ab, ref4, MESH_RANKS, "gloo", card)
+
+    # ---- (c) run_pipeline on 2 ranks --------------------------------------
+    paths = (str(tmp / "left.npy"), str(tmp / "right.npy"))
+    np.save(paths[0], L)
+    np.save(paths[1], R)
+    cfg32 = dataclasses.replace(cfg, runtime=RuntimeConfig(chunk_frames=32))
+    t0 = time.perf_counter()
+    c = ranks.spawn(ranks_path, 2, "gloo", "cuda",
+                    args=(paths, scene.calib, scene.T_w2c, cfg32),
+                    timeout=RANKS_JOIN_S)
+    wall_c = time.perf_counter() - t0
+    ref = mesh_b["result"]
+    need = ("detect_maps", "mutual_nearest", "cholesky_solve")
+    for r, out in enumerate(c):
+        for k in RANK_FE_ARRAYS:
+            if not np.array_equal(out[k], getattr(ref.frontend, k)):
+                fail(f"mesh ranks (c) rank {r}: the frontend's {k} differs "
+                     f"from 4l (b)'s")
+        if out["keyframes"] != ref.bundles.keyframes:
+            fail(f"mesh ranks (c) rank {r}: keyframes {out['keyframes']}, "
+                 f"4l (b) {ref.bundles.keyframes}")
+        d_rel = float(np.abs(out["rel_T"] - ref.bundles.rel_T).max())
+        if not d_rel <= SLICE_TOL["poses"]:
+            fail(f"mesh ranks (c) rank {r}: rel_T {d_rel:.3e} from 4l (b)'s "
+                 f"(limit {SLICE_TOL['poses']})")
+        d_ate = {k: abs(v - mesh_b["ates"][k]) for k, v in out["ates"].items()}
+        if out["ates"].keys() != mesh_b["ates"].keys() or \
+                max(d_ate.values()) > 0.01:
+            fail(f"mesh ranks (c) rank {r}: ATE {out['ates']}, 4l (b) "
+                 f"{mesh_b['ates']} (limit 0.01 m)")
+        if any(out["launches"][k] == 0 for k in need) or any(
+                out["plain"].values()):
+            fail(f"mesh ranks (c) rank {r}: launches {out['launches']}, "
+                 f"plain calls {out['plain']}")
+        log(f"[mesh ranks] (c) rank {r} on {out['device']}: run_pipeline "
+            f"warm {out['wall']:.2f} s (cold {out['cold']:.2f} s; stages "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in out["timings"].items())
+            + f"); keypoints and matches equal to 4l (b)'s, keyframes "
+            f"equal, rel_T within {d_rel:.3e} (limit {SLICE_TOL['poses']}), "
+            f"ATE m {json.dumps(out['ates'])} (differences up to "
+            f"{max(d_ate.values()):.2e}), closures {out['closures']}; "
+            f"launches {out['launches']} ({card})")
+
+    # ---- (d) nccl, one rank per card ----------------------------------------
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        nccl_note = nccl_ranks(ck, mega, scene.calib, L[:4], card)
+    else:
+        nccl_note = (f"not run: the host has {n_cards} card, and nccl takes "
+                     f"one card per rank (the kernels on cuda:1 likewise)")
+        log(f"[mesh ranks] (d) nccl with one rank per card {nccl_note}")
+    log(f"[mesh ranks] spawns joined within {RANKS_JOIN_S:.0f} s: (a) + (b) "
+        f"{MESH_RANKS} ranks {wall_ab:.1f} s, (c) 2 ranks {wall_c:.1f} s "
+        f"(each with its ranks' start-up and imports); (d) {nccl_note} "
+        f"({card})")
 
 
 def main(argv=None) -> int:
@@ -2304,8 +2572,11 @@ def main(argv=None) -> int:
     # ---- 4k. the sparse pose graph ------------------------------------------
     sparse_pg_phase(pipeline, ck, L, R, scene, cfg, main_path, card)
     # ---- 4l. the mesh and overlap modes, the TP mega-bundle -----------------
-    at_tp = mesh_phase(pipeline, ck, ba, bundle, L, R, scene, cfg, main_path,
-                       card)
+    at_tp, mesh_b = mesh_phase(pipeline, ck, ba, bundle, L, R, scene, cfg,
+                               main_path, card)
+    # ---- 4m. the mesh over ranks --------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_ranks_phase(ck, L, R, scene, cfg, mesh_b, card, Path(tmp))
 
     # ---- 5. profile (optional) ---------------------------------------------
     if args.profile:

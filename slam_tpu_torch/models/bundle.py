@@ -31,7 +31,7 @@ import torch
 from ..config import BundleConfig, KeyframeConfig, SlamConfig
 from ..ops import ba
 from ..ops.stereo import backproject_np
-from ..parallel.mesh import Mesh, stage_device
+from ..parallel.mesh import Mesh, host_gather, stage_device
 from ..utils import metrics
 from .trackstore import NO_ID, TrackStore
 
@@ -357,23 +357,35 @@ def optimize_windows(batch: BundleBatch, calib,
     (from pinned host memory) and dispatched before slice s's results,
     copied back into pinned memory behind an event, are taken in.
 
-    With ``mesh`` the slice is every window, padded to a multiple of the
-    mesh's shards (the JAX package's sharded BA, parallel/sharded_ba.py),
-    on the mesh's device; otherwise on ``device``, the card unless the
-    caller names the CPU."""
+    With ``mesh`` the windows are padded to a multiple of the mesh's
+    shards (the JAX package's sharded BA, parallel/sharded_ba.py) and
+    each rank runs its contiguous share of them as one slice on its
+    device (in one process, every window on the mesh's device); the
+    ranks' results are gathered on the host in window order, so that
+    every rank holds the whole result. Otherwise on ``device``, the card
+    unless the caller names the CPU."""
     device = stage_device(mesh, device)
     cuda = device.type == "cuda"
     B = batch.num_windows
-    size = B + (-B) % mesh.size if mesh is not None else min(device_batch, B)
+    if mesh is not None:
+        size = (B + (-B) % mesh.size) // mesh.world
+        starts = [mesh.rank * size]
+    else:
+        size = min(device_batch, B)
+        starts = range(0, B, size)
     step = window_step(calib, device, iters=cfg.lm_iters,
                        min_depth=cfg.min_depth, max_depth=cfg.max_depth,
                        huber_delta=cfg.huber_delta_px)
     parts = []
 
     def submit(s):
-        n = min(s + size, B) - s
+        # a rank whose share is all padding solves copies of the last
+        # window, and keeps none of them
+        n = max(min(s + size, B) - s, 0)
+        s = min(s, B - 1)
         host = [v[:n].to("cpu", non_blocking=True)
-                for v in step(*window_inputs(batch, s, s + n, size))]
+                for v in step(*window_inputs(batch, s, s + max(n, 1),
+                                             size))]
         ready = None
         if cuda:
             ready = torch.cuda.Event()
@@ -387,14 +399,16 @@ def optimize_windows(batch: BundleBatch, calib,
         parts.append([v.numpy().copy() for v in host])
 
     pend = None
-    for s in range(0, B, size):
+    for s in starts:
         cur = submit(s)
         if pend is not None:
             materialize(pend)
         pend = cur
     materialize(pend)
-    return _assemble_bundle_result(
-        batch, *(np.concatenate(f) for f in zip(*parts)))
+    fields = tuple(np.concatenate(f) for f in zip(*parts))
+    if mesh is not None:
+        fields = host_gather(mesh, fields)
+    return _assemble_bundle_result(batch, *fields)
 
 
 def _chain(rel_T: np.ndarray) -> np.ndarray:
@@ -484,9 +498,10 @@ def reoptimize_overflow_tp(res: BundleResult, batch: BundleBatch,
                            mesh: Mesh) -> BundleResult:
     """Re-solve every capacity-overflowed window at its full observation
     count on the landmark-sharded TP mega-bundle (parallel/
-    tp_megabundle.py), its landmarks over the mesh's shards, and put its
-    poses, rel_T, rel_cov, cost and active observation count in place of
-    the truncated solve's; then re-chain the keyframe trajectory.
+    tp_megabundle.py), its landmarks over the mesh's shards (every rank
+    runs this on the same host batch, and gets the same result), and put
+    its poses, rel_T, rel_cov, cost and active observation count in place
+    of the truncated solve's; then re-chain the keyframe trajectory.
     ``res.points`` keeps the truncated solve's landmarks.
 
     As a dense window: the depth gate and the Huber weights of
@@ -495,7 +510,7 @@ def reoptimize_overflow_tp(res: BundleResult, batch: BundleBatch,
     package's are at the initial landmarks)."""
     from ..parallel import tp_megabundle as tp
 
-    tp_mesh = Mesh(mesh.devices, "tp")
+    tp_mesh = mesh.with_axis("tp")
     for name in ("poses", "rel_T", "rel_cov", "cost", "num_obs"):
         setattr(res, name, np.array(getattr(res, name)))
     for spec in batch.overflow:

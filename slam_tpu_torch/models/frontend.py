@@ -253,33 +253,52 @@ def _shift_prev(cur: torch.Tensor, carry, fill_zero: bool) -> torch.Tensor:
     return torch.cat([first, cur[:-1]], dim=0)
 
 
-def process_chunk(chunk_left: torch.Tensor, chunk_right: torch.Tensor,
-                  carry: dict | None, calib: torch.Tensor, cfg: SlamConfig,
-                  generator: torch.Generator | None = None):
-    """One chunk of frames on the device. Images (F, H, W) uint8 or float32
-    in [0, 1]. With ``carry`` (the previous chunk's last frame) the first
-    frame is also matched against it. RANSAC draws from ``generator``.
-    Returns (per-frame dict, new carry)."""
+CARRY_KEYS = ("desc", "valid", "links", "link_valid", "xy")
+
+
+def chunk_features(chunk_left: torch.Tensor, chunk_right: torch.Tensor,
+                   cfg: SlamConfig) -> dict:
+    """Detection, description and stereo association of one chunk: the
+    left images' xy, desc, valid and their stereo links, link_valid (the
+    frame-local half of ``process_chunk``)."""
     F = chunk_left.shape[0]
-    K = cfg.features.max_kp
     feats = _detect_describe(torch.cat([chunk_left, chunk_right], dim=0),
                              cfg)
     fl = {k: v[:F] for k, v in feats.items()}
     fr = {k: v[F:] for k, v in feats.items()}
-
-    mc = cfg.matching
-    D = feats["desc"].shape[-1]
-    hamming = mc.norm == "hamming"
-    # +-1 signs: the matcher's base distance is an increasing affine map
-    # of the Hamming distance, so the gate is converted
-    max_dist = (binary.base_gate_from_hamming(mc.max_hamming, D) if hamming
-                else mc.max_desc_dist)
-    stereo_win, temporal_win = search_windows(mc)
+    stereo_win, _ = search_windows(cfg.matching)
     sm = matching.match_stereo_pair_batched(fl, fr, window=stereo_win,
-                                            max_dist=max_dist)
-    links, link_valid = sm["links"], sm["matched"]
+                                            max_dist=_max_dist(cfg, feats))
+    return {"xy": fl["xy"], "desc": fl["desc"], "valid": fl["valid"],
+            "links": sm["links"], "link_valid": sm["matched"]}
 
-    desc, valid, xy = fl["desc"], fl["valid"], fl["xy"]
+
+def _max_dist(cfg: SlamConfig, feats: dict) -> float:
+    """The matching gate in the matcher's base distance: under the Hamming
+    norm (+-1 signs) the base distance is an increasing affine map of the
+    Hamming distance, so the gate is converted."""
+    mc = cfg.matching
+    if mc.norm == "hamming":
+        return binary.base_gate_from_hamming(mc.max_hamming,
+                                             feats["desc"].shape[-1])
+    return mc.max_desc_dist
+
+
+def chunk_motion(feats: dict, carry: dict | None, calib: torch.Tensor,
+                 cfg: SlamConfig, generator: torch.Generator | None = None,
+                 draw_rows: tuple[int, int] | None = None) -> dict:
+    """Temporal association of a chunk's frames with their previous frames
+    (the carry's at frame 0, or with no carry frame 0 itself) and their
+    robust relative poses: RANSAC's T_est, num_inliers, inlier_frac and
+    pose_ok, and the per-slot bookkeeping in cur-frame slot space
+    (match_prev, match_dist, inlier_prev). ``draw_rows`` = (offset,
+    total): the chunk is rows offset.. of a RANSAC draw for ``total``
+    frames from ``generator`` (a rank's share of a mesh step)."""
+    F, K = feats["xy"].shape[:2]
+    max_dist = _max_dist(cfg, feats)
+    _, temporal_win = search_windows(cfg.matching)
+    desc, valid, xy = feats["desc"], feats["valid"], feats["xy"]
+    links, link_valid = feats["links"], feats["link_valid"]
     c = carry or {}
     prev_desc = _shift_prev(desc, c.get("desc"), False)
     prev_valid = _shift_prev(valid, c.get("valid"), True)
@@ -297,24 +316,8 @@ def process_chunk(chunk_left: torch.Tensor, chunk_right: torch.Tensor,
                            num_hypotheses=cfg.ransac.num_hypotheses,
                            threshold=cfg.ransac.threshold_px,
                            refine_iters=cfg.ransac.refine_iters,
-                           generator=generator)
-
-    # recovery: a failed frame reuses the last good relative pose (the
-    # carried one before the first good frame of the chunk)
+                           generator=generator, draw_rows=draw_rows)
     pose_ok = rr["ok"] & (rr["num_inliers"] >= cfg.ransac.min_inliers)
-    T_est = rr["T_w2c"]
-    last_T0 = (torch.eye(4, dtype=T_est.dtype, device=T_est.device)
-               if carry is None else carry["last_T"])
-    t = torch.arange(F, device=T_est.device)
-    last_ok = torch.cummax(torch.where(pose_ok, t, -1), dim=0).values
-    T_rel = torch.where((last_ok >= 0)[:, None, None],
-                        T_est[last_ok.clamp(min=0)], last_T0)
-
-    # global chain T_chain[t] = T_rel[t] @ ... @ T_rel[0], in float32
-    chain = [T_rel[0]]
-    for i in range(1, F):
-        chain.append(T_rel[i] @ chain[-1])
-    T_chain = torch.stack(chain)
 
     # per-slot bookkeeping in cur-frame slot space; prev -> cur matches are
     # injective, and unmatched slots scatter into a dropped column K
@@ -329,28 +332,54 @@ def process_chunk(chunk_left: torch.Tensor, chunk_right: torch.Tensor,
     inlier_prev = torch.zeros((F, K + 1), dtype=torch.bool, device=j.device)
     inlier_prev.scatter_(1, j, rr["inliers"] & ok)
     match_dist = match_dist[:, :K]
-    if hamming:  # report match distances in bits (BIG passes through)
-        match_dist = binary.hamming_from_base(match_dist, D)
-
+    if cfg.matching.norm == "hamming":  # distances in bits (BIG passes)
+        match_dist = binary.hamming_from_base(match_dist,
+                                              desc.shape[-1])
     num_corr = corr_valid.sum(dim=1)
-    out = {
-        "xy": xy,
-        "desc": desc.half(),
-        "valid": valid,
-        "links": links,
-        "link_valid": link_valid,
-        "match_prev": match_prev[:, :K].int(),
-        "match_dist": match_dist,
-        "inlier_prev": inlier_prev[:, :K],
-        "T_rel": T_rel,
-        "T_chain": T_chain,
-        "num_inliers": rr["num_inliers"].int(),
-        "inlier_frac": rr["num_inliers"] / torch.clamp(num_corr, min=1),
-        "pose_ok": pose_ok,
-    }
-    new_carry = {"desc": desc[-1], "valid": valid[-1], "links": links[-1],
-                 "link_valid": link_valid[-1], "xy": xy[-1],
-                 "last_T": T_rel[-1]}
+    return {"T_est": rr["T_w2c"], "pose_ok": pose_ok,
+            "match_prev": match_prev[:, :K].int(), "match_dist": match_dist,
+            "inlier_prev": inlier_prev[:, :K],
+            "num_inliers": rr["num_inliers"].int(),
+            "inlier_frac": rr["num_inliers"] / torch.clamp(num_corr, min=1)}
+
+
+def chunk_poses(T_est: torch.Tensor, pose_ok: torch.Tensor,
+                last_T: torch.Tensor | None):
+    """The recovery and the chain of a chunk's RANSAC poses: a failed
+    frame reuses the last good relative pose (``last_T``, the carried
+    one, before the chunk's first good frame; the identity with no
+    carry); T_chain[t] = T_rel[t] @ ... @ T_rel[0], in float32. Returns
+    (T_rel, T_chain), each (F, 4, 4)."""
+    F = T_est.shape[0]
+    last_T0 = (torch.eye(4, dtype=T_est.dtype, device=T_est.device)
+               if last_T is None else last_T)
+    t = torch.arange(F, device=T_est.device)
+    last_ok = torch.cummax(torch.where(pose_ok, t, -1), dim=0).values
+    T_rel = torch.where((last_ok >= 0)[:, None, None],
+                        T_est[last_ok.clamp(min=0)], last_T0)
+    chain = [T_rel[0]]
+    for i in range(1, F):
+        chain.append(T_rel[i] @ chain[-1])
+    return T_rel, torch.stack(chain)
+
+
+def process_chunk(chunk_left: torch.Tensor, chunk_right: torch.Tensor,
+                  carry: dict | None, calib: torch.Tensor, cfg: SlamConfig,
+                  generator: torch.Generator | None = None):
+    """One chunk of frames on the device. Images (F, H, W) uint8 or float32
+    in [0, 1]. With ``carry`` (the previous chunk's last frame) the first
+    frame is also matched against it. RANSAC draws from ``generator``.
+    Returns (per-frame dict, new carry)."""
+    feats = chunk_features(chunk_left, chunk_right, cfg)
+    mot = chunk_motion(feats, carry, calib, cfg, generator)
+    T_rel, T_chain = chunk_poses(mot.pop("T_est"), mot["pose_ok"],
+                                 None if carry is None else carry["last_T"])
+    out = {"xy": feats["xy"], "desc": feats["desc"].half(),
+           "valid": feats["valid"], "links": feats["links"],
+           "link_valid": feats["link_valid"], "T_rel": T_rel,
+           "T_chain": T_chain, **mot}
+    new_carry = {k: feats[k][-1] for k in CARRY_KEYS}
+    new_carry["last_T"] = T_rel[-1]
     return out, new_carry
 
 

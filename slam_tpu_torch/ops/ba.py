@@ -124,22 +124,39 @@ def _gauge_mask(P, dtype, device):
     return m
 
 
-def _reduced_system(Hpp, Hll_inv, Wc, g_p, g_l):
-    """Schur complement on the poses: S (B, 6P, 6P) with the gauge rows
-    replaced by identity, ghat (B, 6P), and the flat cross blocks."""
+def _schur_terms(Hll_inv, Wc, g_l):
+    """The landmark sums of the Schur complement: U = sum_l W_l Hll_l^-1
+    W_l^T (B, 6P, 6P), Ag = sum_l W_l Hll_l^-1 g_l (B, 6P), and the flat
+    cross blocks Bm (B, 6P, 3L)."""
     B, L, P = Wc.shape[:3]
     WHinv = Wc @ Hll_inv[:, :, None]                        # (B, L, P, 6, 3)
     A = WHinv.permute(0, 2, 3, 1, 4).reshape(B, P * 6, L * 3)
     Bm = Wc.permute(0, 2, 3, 1, 4).reshape(B, P * 6, L * 3)
     U = A @ Bm.transpose(1, 2)
-    eyeP = torch.eye(P, dtype=Wc.dtype, device=Wc.device)
+    Ag = (A @ g_l.reshape(B, L * 3, 1))[..., 0]
+    return U, Ag, Bm
+
+
+def _pose_system(Hpp, g_p, U, Ag):
+    """S = blockdiag(Hpp) - U (B, 6P, 6P) with the gauge rows replaced by
+    identity, and ghat = g_p - Ag (B, 6P), gauge rows zero."""
+    B, P = Hpp.shape[:2]
+    eyeP = torch.eye(P, dtype=Hpp.dtype, device=Hpp.device)
     blockdiag = (Hpp[:, :, :, None, :] * eyeP[None, :, None, :, None]
                  ).reshape(B, P * 6, P * 6)
     S = blockdiag - U
-    ghat = g_p.reshape(B, P * 6) - (A @ g_l.reshape(B, L * 3, 1))[..., 0]
-    mask = _gauge_mask(P, Wc.dtype, Wc.device)
+    ghat = g_p.reshape(B, P * 6) - Ag
+    mask = _gauge_mask(P, Hpp.dtype, Hpp.device)
     S = S * mask[:, None] * mask[None, :] + torch.diag(1.0 - mask)
-    return S, ghat * mask, Bm
+    return S, ghat * mask
+
+
+def _reduced_system(Hpp, Hll_inv, Wc, g_p, g_l):
+    """Schur complement on the poses: S (B, 6P, 6P) with the gauge rows
+    replaced by identity, ghat (B, 6P), and the flat cross blocks."""
+    U, Ag, Bm = _schur_terms(Hll_inv, Wc, g_l)
+    S, ghat = _pose_system(Hpp, g_p, U, Ag)
+    return S, ghat, Bm
 
 
 def _spd_solve(S, g):

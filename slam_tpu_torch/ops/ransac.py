@@ -33,12 +33,17 @@ def stereo_agreement(T_w2c, pw, meas, valid, calib,
 
 
 def sample_hypotheses(valid: torch.Tensor, num_hypotheses: int,
-                      generator: torch.Generator | None = None):
+                      generator: torch.Generator | None = None,
+                      draw_rows: tuple[int, int] | None = None):
     """(B, H, 3) index sets drawn uniformly without replacement from the
-    valid entries of each row of ``valid`` (B, N), by Gumbel top-k."""
+    valid entries of each row of ``valid`` (B, N), by Gumbel top-k. With
+    ``draw_rows`` = (offset, total) the rows are rows offset.. of a draw
+    for ``total`` rows, so that a share of a batch draws what the whole
+    batch would."""
     B, N = valid.shape
-    u = torch.rand((B, num_hypotheses, N), generator=generator,
-                   device=valid.device)
+    lo, total = (0, B) if draw_rows is None else draw_rows
+    u = torch.rand((total, num_hypotheses, N), generator=generator,
+                   device=valid.device)[lo:lo + B]
     g = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
     logits = torch.where(valid, 0.0, -math.inf)[:, None, :]
     return torch.topk(logits + g, MIN_SET, dim=-1).indices
@@ -47,19 +52,23 @@ def sample_hypotheses(valid: torch.Tensor, num_hypotheses: int,
 def ransac_pnp(pw, meas, valid, calib, num_hypotheses: int = 256,
                threshold: float = DEFAULT_THRESHOLD, refine_iters: int = 5,
                generator: torch.Generator | None = None,
-               hyp_idx: torch.Tensor | None = None) -> dict:
+               hyp_idx: torch.Tensor | None = None,
+               draw_rows: tuple[int, int] | None = None) -> dict:
     """Robust poses from B padded, masked correspondence sets.
 
     pw (B, N, 3) points in the previous camera, meas (B, N, 3) stereo
     observations (uL, uR, v) in the current one, valid (B, N).
-    ``hyp_idx`` (B, H, 3) replaces the sampled hypotheses.
+    ``hyp_idx`` (B, H, 3) replaces the sampled hypotheses; ``draw_rows``
+    (offset, total) samples them as rows offset.. of a draw for ``total``
+    sets (``sample_hypotheses``).
 
     Returns T_w2c (B, 4, 4), inliers (B, N), num_inliers (B,), ok (B,).
     """
     B, N, _ = pw.shape
     ok_input = valid.sum(dim=1) >= MIN_SET
     if hyp_idx is None:
-        hyp_idx = sample_hypotheses(valid, num_hypotheses, generator)
+        hyp_idx = sample_hypotheses(valid, num_hypotheses, generator,
+                                    draw_rows)
     hyp_idx = hyp_idx.to(pw.device).long()
     pc_cur = stereo.backproject(calib, meas)
 

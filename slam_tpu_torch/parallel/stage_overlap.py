@@ -23,6 +23,10 @@ stream of their own. BA's inputs are uploaded on that stream and its
 outputs read after it is synchronised, so no tensor crosses streams.
 BA's LM loop is launched from the frontend's thread, between its steps:
 a worker thread of its own gained nothing on an H100 (PERF.md).
+
+Over the ranks of a process group the two groups would be different
+ranks, with a point-to-point stream of windows between them; that is not
+ported, and a mesh over more than one rank raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -49,9 +53,17 @@ def split_mesh(mesh: Mesh | None, fe_devices: int | None = None,
                axis: str = "dp") -> tuple[Mesh, Mesh]:
     """(frontend group, BA group) of a mesh's shards: the first
     ``fe_devices`` (by default half, rounded up) and the rest. A 1-shard
-    mesh, or none (a 1-shard mesh on the card), is both groups."""
+    mesh, or none (a 1-shard mesh on the card), is both groups. Raises
+    NotImplementedError for a mesh over more than one rank."""
     if mesh is None:
         mesh = make_mesh(axis=axis)
+    if mesh.world > 1:
+        raise NotImplementedError(
+            f"the stage overlap over {mesh.world} ranks is not ported: its "
+            f"frontend group and BA group would be different ranks, with a "
+            f"point-to-point stream of windows between them; run "
+            f"run_pipeline(mesh=..., overlap=False) across ranks, or the "
+            f"overlap in one process")
     devs = mesh.devices
     if len(devs) == 1:
         m = Mesh(devs, axis)

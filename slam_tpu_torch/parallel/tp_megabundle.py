@@ -11,16 +11,22 @@ The Schur complement is a sum over landmarks:
 
 so each shard builds its landmark blocks and its partial pose terms, and
 one sum over the shards gives the (6P, 6P) reduced system. The JAX
-package makes that sum a ``psum`` across devices; here the shards are the
-batch axis on one device: the blocks are built per shard
-(``ops.ba._linearize`` / ``_build_blocks``, index gathers and
-``index_add_``; the poses replicated to every shard), and the sum is one
-Schur product over the shards' landmarks side by side. The landmarks are
-disjoint, so Hll is damped per shard, while the pose block is damped
-once, after the sum, and the gauge on pose 0 goes on after it too. The
-reduced system is solved by ``ops.ba._spd_solve``: kernel B6 at
-(1, 6P, 6P) on the card. LM accepts on the summed cost with the dense
-LM's rule (lam / 3 or lam * 4 within [1e-9, 1e6]).
+package makes that sum a ``psum`` across devices. Here a rank's shards
+are the batch axis on its device: each rank uploads only its own shards,
+builds their blocks (``ops.ba._linearize`` / ``_build_blocks``, index
+gathers and ``index_add_``; the poses replicated to every shard) and its
+partial sums (Hpp and g_p summed over its shards, and one Schur product
+over its shards' landmarks side by side), and one ``mesh.all_sum`` of
+the four gives every rank the same system (with one rank, the sum over
+its shards alone). The landmarks are disjoint, so Hll is damped per
+shard, while the pose block is damped once, after the sum, and the gauge
+on pose 0 goes on after it too. Every rank solves that system by
+``ops.ba._spd_solve``, kernel B6 at (1, 6P, 6P) on the card (the JAX
+package's replicated ``out_specs=P()``), which keeps the ranks in
+lockstep with no broadcast. LM accepts on the cost summed the same way,
+with the dense LM's rule (lam / 3 or lam * 4 within [1e-9, 1e6]), so
+every rank accepts alike. The landmarks and weights come back to the
+host through ``mesh.host_gather``.
 
 The residuals, the shard blocks, their sum and the cost are formed in
 float64 from the float32 state; only the reduced system goes to B6 in
@@ -45,7 +51,7 @@ import numpy as np
 import torch
 
 from ..ops import ba, se3
-from .mesh import Mesh
+from .mesh import Mesh, all_sum, host_gather
 
 
 def partition_megabundle(points, cam_idx, lm_idx, meas, w, n_dev,
@@ -96,9 +102,10 @@ def _check_mesh(mesh: Mesh, axis: str, n_dev: int) -> None:
 
 
 def _to_device(mesh: Mesh, poses, points_sh, cam_sh, lm_sh, meas_sh, w_sh):
-    """The problem as tensors on the mesh's device: poses (1, P, 4, 4),
-    the shard arrays with the shard axis leading, indices int64."""
-    dev = mesh.device
+    """This rank's part of the problem as tensors on its device: poses
+    (1, P, 4, 4), its shards of the shard arrays with the shard axis
+    leading, indices int64."""
+    dev, mine = mesh.device, mesh.local_shards
 
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
@@ -106,6 +113,9 @@ def _to_device(mesh: Mesh, poses, points_sh, cam_sh, lm_sh, meas_sh, w_sh):
     def i64(a):
         return torch.as_tensor(np.asarray(a, np.int64), device=dev)
 
+    points_sh, cam_sh, lm_sh, meas_sh, w_sh = (
+        np.asarray(a)[mine] for a in (points_sh, cam_sh, lm_sh, meas_sh,
+                                      w_sh))
     return (f32(poses)[None], f32(points_sh), i64(cam_sh), i64(lm_sh),
             f32(meas_sh), f32(w_sh))
 
@@ -121,13 +131,13 @@ def _f64(poses, X, meas, w, calib):
             calib.double())
 
 
-def _summed_cost(poses, X, cam, lm, meas, w, calib):
-    """Half squared error summed over the shards, in float64: a (1,)
-    tensor."""
+def _summed_cost(mesh, poses, X, cam, lm, meas, w, calib):
+    """Half squared error summed over the mesh's shards, in float64: a (1,)
+    tensor, the same on every rank."""
     poses, X, meas, w, calib = _f64(poses, X, meas, w, calib)
     T, Xo = ba._gather_obs(_replicated(poses, X.shape[0]), X, cam, lm)
     r, _ = ba._residuals_tx(T, Xo, meas, w, calib)
-    return 0.5 * torch.sum(r * r)[None]
+    return all_sum(mesh, 0.5 * torch.sum(r * r)[None])
 
 
 def _shard_blocks(poses, X, cam, lm, meas, w, calib, huber_delta=0.0):
@@ -140,40 +150,43 @@ def _shard_blocks(poses, X, cam, lm, meas, w, calib, huber_delta=0.0):
                             X.shape[1])
 
 
-def _summed_system(blocks, lam):
-    """The reduced system of the shard blocks from ``ops.ba._build_blocks``
-    (shard axis leading): (S (1, 6P, 6P), ghat (1, 6P), Bm, Hll_inv, g_l),
-    the last three with the shards' landmarks side by side. lam (1,):
-    Hll damped per landmark, the summed pose block once."""
+def _summed_system(mesh, blocks, lam):
+    """The reduced system of this rank's shard blocks from
+    ``ops.ba._build_blocks`` (shard axis leading), summed over the mesh:
+    (S (1, 6P, 6P), ghat (1, 6P), Bm, Hll_inv, g_l), the last three this
+    rank's, with its shards' landmarks side by side. lam (1,): Hll damped
+    per landmark; the pose block once, after the sum. One ``all_sum`` of
+    Hpp, g_p and the Schur partials."""
     g_p, g_l, Hpp, Hll, Wc = blocks
     n_sh, L_loc, P = Wc.shape[:3]
     eye3 = torch.eye(3, dtype=Hll.dtype, device=Hll.device)
     eye6 = torch.eye(6, dtype=Hpp.dtype, device=Hpp.device)
     Hll_inv = ba._inv3x3(Hll + lam * eye3 + 1e-8 * eye3).reshape(
         1, n_sh * L_loc, 3, 3)
-    Hpp_d = Hpp.sum(0, keepdim=True) + lam * eye6
     g_l = g_l.reshape(1, n_sh * L_loc, 3)
-    S, ghat, Bm = ba._reduced_system(
-        Hpp_d, Hll_inv, Wc.reshape(1, n_sh * L_loc, P, 6, 3),
-        g_p.sum(0, keepdim=True), g_l)
+    U, Ag, Bm = ba._schur_terms(
+        Hll_inv, Wc.reshape(1, n_sh * L_loc, P, 6, 3), g_l)
+    Hpp, g_p, U, Ag = all_sum(mesh, Hpp, g_p, U, Ag)
+    S, ghat = ba._pose_system(Hpp + lam * eye6, g_p, U, Ag)
     return S, ghat, Bm, Hll_inv, g_l
 
 
-def _lm(poses, X, cam, lm, meas, w, calib, iters, lam0, huber_delta):
-    """LM on the sharded problem; poses (1, P, 4, 4), X (n_sh, L_loc, 3).
-    Returns (poses, X, cost (1,))."""
+def _lm(mesh, poses, X, cam, lm, meas, w, calib, iters, lam0, huber_delta):
+    """LM on the sharded problem; poses (1, P, 4, 4), X (n_sh, L_loc, 3)
+    this rank's shards. Returns (poses, X, cost (1,))."""
     P = poses.shape[1]
-    cost = _summed_cost(poses, X, cam, lm, meas, w, calib)
+    cost = _summed_cost(mesh, poses, X, cam, lm, meas, w, calib)
     lam = torch.full((1,), lam0, dtype=torch.float64, device=X.device)
     for _ in range(iters):
         blocks = _shard_blocks(poses, X, cam, lm, meas, w, calib,
                                huber_delta)
-        S, ghat, Bm, Hll_inv, g_l = _summed_system(blocks, lam)
+        S, ghat, Bm, Hll_inv, g_l = _summed_system(mesh, blocks, lam)
         dp = -ba._spd_solve(S.float(), ghat.float()).double()
         dl = ba._back_substitute(dp, Bm, Hll_inv, g_l).reshape(X.shape)
         new_poses = se3.retract(poses, dp.reshape(1, P, 6).float())
         new_X = X + dl.float()
-        new_cost = _summed_cost(new_poses, new_X, cam, lm, meas, w, calib)
+        new_cost = _summed_cost(mesh, new_poses, new_X, cam, lm, meas, w,
+                                calib)
         ok = torch.isfinite(new_cost) & (new_cost < cost)
         poses = torch.where(ok, new_poses, poses)
         X = torch.where(ok, new_X, X)
@@ -187,19 +200,21 @@ def optimize_megabundle(mesh: Mesh, poses0, points_sh, cam_sh, lm_sh,
                         meas_sh, w_sh, calib, iters: int = 20,
                         lam0: float = 1e-4, axis: str = "tp"):
     """LM on one bundle whose landmarks and observations are sharded over
-    ``axis``, on the mesh's device. Inputs are the outputs of
-    :func:`partition_megabundle`. Returns (poses (P, 4, 4),
-    points (n_dev * L_loc, 3), cost, cost0) on the host."""
+    ``axis``, each rank's shards on its device. Inputs are the outputs of
+    :func:`partition_megabundle`, the same on every rank. Returns
+    (poses (P, 4, 4), points (n_dev * L_loc, 3), cost, cost0) on the
+    host, the same on every rank."""
     _check_mesh(mesh, axis, np.shape(points_sh)[0])
     poses, X, cam, lm, meas, w = _to_device(mesh, poses0, points_sh, cam_sh,
                                             lm_sh, meas_sh, w_sh)
     calib_t = torch.as_tensor(np.asarray(calib, np.float32),
                               device=mesh.device)
-    cost0 = _summed_cost(poses, X, cam, lm, meas, w, calib_t)
-    poses, X, cost = _lm(poses, X, cam, lm, meas, w, calib_t, iters, lam0,
-                         0.0)
-    return (poses[0].cpu().numpy(), X.reshape(-1, 3).cpu().numpy(),
-            float(cost), float(cost0))
+    cost0 = _summed_cost(mesh, poses, X, cam, lm, meas, w, calib_t)
+    poses, X, cost = _lm(mesh, poses, X, cam, lm, meas, w, calib_t, iters,
+                         lam0, 0.0)
+    X = host_gather(mesh, X.cpu().numpy())
+    return (poses[0].cpu().numpy(), X.reshape(-1, 3), float(cost),
+            float(cost0))
 
 
 def optimize_megabundle_pruned(mesh: Mesh, poses0, points_sh, cam_sh, lm_sh,
@@ -213,8 +228,8 @@ def optimize_megabundle_pruned(mesh: Mesh, poses0, points_sh, cam_sh, lm_sh,
     lam0 = 1e-4. A landmark behind ``min_depth`` or beyond ``max_depth``
     in any observing camera loses all its observations (within its shard,
     which holds all of them). Returns (poses (P, 4, 4), points_sh
-    (n_dev, L_loc, 3), w_sh (n_dev, M_loc), cost) on the host, the last
-    two in the shard layout, ready for
+    (n_dev, L_loc, 3), w_sh (n_dev, M_loc), cost) on the host, the same on
+    every rank, the middle two in the shard layout, ready for
     :func:`megabundle_pose_covariances`."""
     _check_mesh(mesh, axis, np.shape(points_sh)[0])
     poses, X, cam, lm, meas, w = _to_device(mesh, poses0, points_sh, cam_sh,
@@ -225,13 +240,13 @@ def optimize_megabundle_pruned(mesh: Mesh, poses0, points_sh, cam_sh, lm_sh,
     for _ in range(prune_rounds):
         w = ba.prune_depth_weights(_replicated(poses, n_sh), X, cam, lm, w,
                                    min_depth, max_depth)
-        poses, X, _ = _lm(poses, X, cam, lm, meas, w, calib_t, iters, 1e-4,
-                          huber_delta)
+        poses, X, _ = _lm(mesh, poses, X, cam, lm, meas, w, calib_t, iters,
+                          1e-4, huber_delta)
     w = ba.prune_depth_weights(_replicated(poses, n_sh), X, cam, lm, w,
                                min_depth, max_depth)
-    cost = _summed_cost(poses, X, cam, lm, meas, w, calib_t)
-    return (poses[0].cpu().numpy(), X.cpu().numpy(), w.cpu().numpy(),
-            float(cost))
+    cost = _summed_cost(mesh, poses, X, cam, lm, meas, w, calib_t)
+    X, w = host_gather(mesh, (X.cpu().numpy(), w.cpu().numpy()))
+    return poses[0].cpu().numpy(), X, w, float(cost)
 
 
 def megabundle_pose_covariances(mesh: Mesh, poses, points_sh, cam_sh, lm_sh,
@@ -239,8 +254,9 @@ def megabundle_pose_covariances(mesh: Mesh, poses, points_sh, cam_sh, lm_sh,
     """(P, 6, 6) marginal pose covariances of a converged mega-bundle, as
     ``ops.ba.pose_covariances`` gives them for a dense window (the
     inverse undamped Gauss-Newton Schur complement, pose 0 gauge-fixed:
-    its block zero), with the landmark sum over the shards. Hll gets
-    1e-8 I as in the JAX package's TP path (the dense path adds 1e-6)."""
+    its block zero), with the landmark sum over the shards (one
+    ``all_sum``); every rank inverts the same system. Hll gets 1e-8 I as
+    in the JAX package's TP path (the dense path adds 1e-6)."""
     n_dev = np.shape(points_sh)[0]
     if axis not in mesh.shape or mesh.shape[axis] != n_dev:
         raise ValueError(
@@ -252,8 +268,8 @@ def megabundle_pose_covariances(mesh: Mesh, poses, points_sh, cam_sh, lm_sh,
                               device=mesh.device)
     P = poses.shape[1]
     blocks = _shard_blocks(poses, X, cam, lm, meas, w, calib_t)
-    S = _summed_system(blocks, torch.zeros(1, dtype=torch.float64,
-                                           device=X.device))[0]
+    S = _summed_system(mesh, blocks, torch.zeros(1, dtype=torch.float64,
+                                                 device=X.device))[0]
     S = S + 1e-8 * torch.eye(P * 6, dtype=S.dtype, device=S.device)
     cov = torch.linalg.inv_ex(S)[0].reshape(P, 6, P, 6)
     d = torch.arange(P, device=S.device)

@@ -24,6 +24,15 @@ mega-bundle; with ``overlap`` as well, frontend and BA overlap on two
 CUDA streams (parallel/stage_overlap.py), timed as one stage,
 ``frontend+bundles_overlapped``. Both need in-memory images, and neither
 reuses cached artifacts of the stages it runs.
+
+A mesh over the ranks of a process group (``make_mesh()`` in each rank)
+runs the frontend and the window BA across them, and every rank calls
+``run_pipeline`` with the same inputs: the mesh stages gather their
+results on the host, and the stages after them (the track store, the
+pose graph, loop closure, ``evaluate``) run on every rank from the same
+host arrays, as the JAX package's replicated outputs do. Only rank 0
+logs and writes files. The overlap over more than one rank is not
+ported (parallel/stage_overlap.py raises).
 """
 
 from __future__ import annotations
@@ -103,7 +112,8 @@ def run_pipeline(images_left, images_right, calib,
                  device=None) -> PipelineResult:
     """The full pipeline on ``device``: the card by default, where the
     kernels run (raises without one); ``"cpu"`` runs their plain versions.
-    With ``mesh`` every stage runs on the mesh's device.
+    With ``mesh`` every stage runs on the mesh's device (this rank's, over
+    ranks: module docstring).
 
     ``images_left`` / ``images_right`` are in-memory (F, H, W) arrays
     (uint8, or float32 in [0, 1]) or lists of PNG paths; with paths the
@@ -118,6 +128,8 @@ def run_pipeline(images_left, images_right, calib,
     if from_disk and (mesh is not None or overlap):
         raise ValueError("mesh/overlap modes require in-memory image arrays")
     device = str(stage_device(mesh, device))
+    if mesh is not None and mesh.rank != 0:
+        verbose, cache_dir = False, None  # rank 0 logs and writes
     timings = {}
     log = print if verbose else (lambda *a, **k: None)
 

@@ -296,6 +296,10 @@ tp_megabundle.optimize_megabundle_pruned(
     *tp_megabundle.partition_megabundle(
         np.ones((8, 3)) * [0, 0, 10], np.arange(16) % 3, np.arange(16) // 2,
         np.ones((16, 3)), np.ones(16), 2), scene.calib, iters=2)
+# the mesh over ranks: the dry run on two gloo ranks of the CPU
+from slam_tpu_torch.parallel.dryrun import dryrun_multichip
+assert dryrun_multichip(2, backend="gloo", device="cpu").startswith(
+    "dryrun_multichip ok: 2 devices")
 import slam_tpu_torch.scale_run, slam_tpu_torch.runtime.tsan
 import slam_tpu_torch.models.db_odometry, slam_tpu_torch.models.covgraph
 import slam_tpu_torch.ops.triangulation, slam_tpu_torch.convert
@@ -323,8 +327,9 @@ def test_port_never_imports_jax():
     memory and from PNG files on disk (KITTI IO, the native runtime, the
     prefetcher, the stage cache, a checkpoint resume), then the CLI on the
     CPU with its analysis, the mesh and overlap modes and the TP
-    mega-bundle, the SIFT and ORB detectors and the sparse pose graph, and
-    every other module imported: afterwards no
+    mega-bundle, the dry run over two CPU ranks (parallel/ranks.py,
+    parallel/dryrun.py), the SIFT and ORB detectors and the sparse pose
+    graph, and every other module imported: afterwards no
     module of JAX nor any module of the JAX package (``slam_tpu`` or
     ``slam_tpu.*``) is loaded."""
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
@@ -375,7 +380,9 @@ def test_port_sources_import_nothing_of_jax():
             "slam_tpu_torch/parallel/sharded_ba.py",
             "slam_tpu_torch/parallel/sharded_frontend.py",
             "slam_tpu_torch/parallel/tp_megabundle.py",
-            "slam_tpu_torch/parallel/stage_overlap.py"} <= names
+            "slam_tpu_torch/parallel/stage_overlap.py",
+            "slam_tpu_torch/parallel/ranks.py",
+            "slam_tpu_torch/parallel/dryrun.py"} <= names
     assert [f for p in files for f in foreign_imports(p)] == []
 
 
