@@ -177,8 +177,27 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      rel_T within SLICE_TOL, every ATE within 0.01 m, and B1, B2 and B6
      launched in each rank with no plain call; (d) where the host has
      more than one card, (a) and (b) over nccl with one rank per card and
-     B1, B2 and B6 on cuda:1 against their plain versions; otherwise a
-     line says it was not run and why;
+     B1, B2 and B6 on cuda:1 against their plain versions, and (e)'s
+     overlap over nccl on 2 and on 4 cards where the host has them;
+     otherwise a line says it was not run and why; (e) the stage overlap
+     over 2 gloo ranks sharing the card, run_pipeline(mesh=make_mesh(),
+     overlap=True) under SlamConfig() in each (rank 0 the frontend, rank 1
+     the BA, fed window batches point to point), cold and then with the
+     launch counters zeroed: keypoints, matches, keyframes, windows and
+     closures equal to the one-process overlap on a 2-shard mesh, rel_T
+     within 1e-4, every ATE within 0.01 m, the two ranks' results equal,
+     B1 launched on rank 0 and B6 on rank 1, no plain call; the
+     overlapped stage per rank, warm and cold, beside (c)'s stages in
+     turn and 4l (c)'s one-process overlap;
+  4n. (a) slam_tpu_torch.entry.entry(): its step (one frontend chunk of
+     4 x 256 x 832, 1024 keypoints, 256 hypotheses) twice on the card,
+     outputs of the JAX step's shapes and dtypes, finite, B1 and B2
+     launched, then the median ms of 5 warm steps; (b) the per-image
+     forms on one frame of the scene (row 5 of 32): detect_and_describe,
+     _multiscale, _akaze, _sift, _orb and match_stereo_pair each equal
+     bit for bit to that row of its batched form, and detect on kernel B4
+     (one launch) with xy and valid equal to detect_and_describe_batch's
+     row on B1;
   5. with --profile DIR: one more warm run of the main path, and one
      each of the AKAZE, the SIFT and the ORB path, under torch.profiler;
      wall time, device busy time (union of the device events' intervals)
@@ -186,7 +205,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      time by kernel, into DIR/profile.json, profile_akaze.json,
      profile_sift.json and profile_orb.json.
 The second line from the end is the kernels' JSON record (after a full
-run only): per kernel its launches on the path that runs it, max abs
+run only): per kernel its launches on the path that runs it (B4's on the
+per-image detect path of 4n (b), and in phase 2b beside it), max abs
 error against its plain version, its time, the plain version's, the
 least time the card could take (bytes over 3.35 TB/s or operations over
 the peak rate of their type, the larger) and one PyTorch call computing
@@ -1550,7 +1570,7 @@ def mesh_phase(pipeline, ck, ba, bundle, L, R, scene, cfg, main_path,
     mega-bundle on 4 shards and on 1, (f) one BA batch of KITTI 00's
     window count. Returns B6's rows at the TP shapes of (d) and (e): each
     with its launches in that run, and its error and times on one of the
-    systems that run solved; and (b)'s drive_path record."""
+    systems that run solved; (b)'s drive_path record; and (c)'s medians."""
     import dataclasses
 
     from slam_tpu_torch.config import BundleConfig, RuntimeConfig
@@ -1838,7 +1858,7 @@ def mesh_phase(pipeline, ck, ba, bundle, L, R, scene, cfg, main_path,
         f"memory {(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} "
         f"GiB above the {base / 2**30:.2f} GiB held before ({card})")
     del win, out
-    return [row_d, row_e], b
+    return [row_d, row_e], b, med
 
 
 # phase 4m: the mesh over ranks, each rank a process of its own. (a) and
@@ -1933,6 +1953,119 @@ def ranks_path(paths, calib, T_gt, cfg) -> dict:
             **{k: getattr(fe, k) for k in RANK_FE_ARRAYS}}
 
 
+# what (e) holds equal to the one-process overlap's: the windows
+OVERLAP_WINDOWS = ("frames", "n_poses", "track_of_lm", "meas", "cam_idx",
+                   "lm_idx")
+RANK_REL_T_TOL = 1e-4
+RANK_ATE_SPREAD = 1e-5
+
+
+def ranks_overlap(paths, calib, T_gt, cfg) -> dict:
+    """One rank of phase 4m (e): run_pipeline(mesh=make_mesh(),
+    overlap=True) on the scene, once cold (a fresh process) and once,
+    after a barrier (so that every rank's clock starts together), with
+    the launch counters zeroed just before it and read just after; both
+    runs' stage timings, the measured run's frontend, windows, rel_T,
+    closures and every stage's ATE."""
+    from slam_tpu_torch import pipeline
+    from slam_tpu_torch.ops import cuda_kernels as ck
+    from slam_tpu_torch.parallel.mesh import make_mesh
+
+    L, R = (np.load(p) for p in paths)
+    mesh = make_mesh()
+    cold = pipeline.run_pipeline(L, R, calib, cfg, verbose=False, mesh=mesh,
+                                 overlap=True).timings
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    ck.reset_counters()
+    t0 = time.perf_counter()
+    res = pipeline.run_pipeline(L, R, calib, cfg, verbose=False, mesh=mesh,
+                                overlap=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(ck.LAUNCHES), dict(ck.PLAIN_CALLS)
+    report = pipeline.evaluate(res, T_gt)
+    return {"device": str(mesh.device), "wall": wall, "cold": cold,
+            "timings": res.timings, "launches": launches, "plain": plain,
+            "ates": {k: report[k]["ate_rmse_m"] for k in (
+                "frontend", "bundles_kf", "pose_graph_kf",
+                "pose_graph_lc_kf") if k in report},
+            "closures": [(c.frame_i, c.frame_j) for c in res.closures],
+            "keyframes": res.bundles.keyframes, "rel_T": res.bundles.rel_T,
+            **{k: getattr(res.bundles, k) for k in OVERLAP_WINDOWS},
+            **{k: getattr(res.frontend, k) for k in RANK_FE_ARRAYS}}
+
+
+def check_overlap_ranks(runs, ref, backend: str, card: str,
+                        rel_tol: float = RANK_REL_T_TOL) -> None:
+    """Phase 4m (e) (and its nccl runs in (d)): every rank's overlapped
+    pipeline against the one-process overlap on a mesh of as many shards
+    (``ref``, drive_path's record): keypoints, matches, keyframes, windows
+    and closures equal, rel_T within ``rel_tol``, every ATE within
+    0.01 m; every rank's frontend, windows, rel_T, keyframes and closures
+    equal to rank 0's, its ATEs within RANK_ATE_SPREAD of rank 0's (each
+    rank optimizes the pose graph and the loop-closure pairs on its own,
+    and the card's atomic sums vary in order); B1 launched on the
+    frontend's first rank, B6 on the BA group's (rank (n + 1) // 2, as
+    split_mesh cuts), no plain call on any. Logs every rank's line, then
+    fails on the first fault found."""
+    res = ref["result"]
+    n = len(runs)
+    fe_first, ba_first = 0, (n + 1) // 2
+    faults = []
+    for r, out in enumerate(runs):
+        where = f"mesh ranks overlap {backend}, rank {r}"
+        differ = [k for k in RANK_FE_ARRAYS
+                  if not np.array_equal(out[k], getattr(res.frontend, k))]
+        differ += [k for k in OVERLAP_WINDOWS
+                   if not np.array_equal(out[k], getattr(res.bundles, k))]
+        differ += [k for k, v in (("keyframes", res.bundles.keyframes),
+                                  ("closures", ref["closures"]))
+                   if out[k] != v]
+        if differ:
+            faults.append(f"{where}: {differ} differ from one process's")
+        d_rel = float(np.abs(out["rel_T"] - res.bundles.rel_T).max())
+        d_ate = {k: abs(v - ref["ates"][k]) for k, v in out["ates"].items()}
+        if not d_rel <= rel_tol or out["ates"].keys() != \
+                ref["ates"].keys() or max(d_ate.values()) > 0.01:
+            faults.append(
+                f"{where}: rel_T {d_rel:.3e} (limit {rel_tol}), ATE "
+                f"{out['ates']}, one process {ref['ates']} (limit 0.01 m)")
+        differ = [k for k in ("keyframes", "closures")
+                  if out[k] != runs[0][k]]
+        differ += [k for k in ("rel_T",) + RANK_FE_ARRAYS + OVERLAP_WINDOWS
+                   if not np.array_equal(out[k], runs[0][k])]
+        spread = max(abs(v - runs[0]["ates"][k])
+                     for k, v in out["ates"].items())
+        if differ or spread > RANK_ATE_SPREAD:
+            faults.append(f"{where}: {differ} differ from rank 0's, ATEs "
+                          f"{spread:.3e} m from rank 0's (limit "
+                          f"{RANK_ATE_SPREAD})")
+        out["d_rel"], out["d_ate"] = d_rel, max(d_ate.values())
+        out["spread"] = spread
+    if not runs[fe_first]["launches"]["detect_maps"] or \
+            not runs[ba_first]["launches"]["cholesky_solve"] or \
+            any(any(out["plain"].values()) for out in runs):
+        faults.append(
+            f"mesh ranks overlap {backend}: B1 launches on rank {fe_first} "
+            f"{runs[fe_first]['launches']['detect_maps']}, B6 on rank "
+            f"{ba_first} {runs[ba_first]['launches']['cholesky_solve']}, "
+            f"plain calls {[out['plain'] for out in runs]}")
+    stage = "frontend+bundles_overlapped"
+    for r, out in enumerate(runs):
+        log(f"[mesh ranks] (e) overlap, {backend} rank {r} of {n} on "
+            f"{out['device']}: {stage} warm {out['timings'][stage]:.3f} s, "
+            f"cold {out['cold'][stage]:.3f} s; run_pipeline warm "
+            f"{out['wall']:.2f} s, stages "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in out["timings"].items())
+            + f"; against one process: rel_T within {out['d_rel']:.3e} "
+            f"(limit {rel_tol}), ATEs within {out['d_ate']:.2e} m, "
+            f"ATEs {out['spread']:.2e} m from rank 0's; launches "
+            f"{out['launches']} ({card})")
+    if faults:
+        fail("; ".join(faults))
+
+
 def mega_in_process(tp, make_mesh, mega, calib, n: int, iters: int):
     """4l (e)'s mega-bundle on a one-process n-shard mesh: (poses, cost,
     ms per LM iteration), after a warm-up of one iteration."""
@@ -1984,12 +2117,15 @@ def check_ranks_ab(ab, ref, n: int, backend: str, card: str) -> None:
         f"one process with {n} shards {ms:.2f} ms ({card})")
 
 
-def nccl_ranks(ck, mega, calib, frames, card) -> str:
+def nccl_ranks(ck, mega, calib, L, R, scene, cfg, card) -> str:
     """Phase 4m (d), on a host with more than one card: (a) and (b) over
     nccl with one rank per card (at most MESH_RANKS), (b) against the
-    one-process mesh of as many shards; then B1 on ``frames``, B2 and B6
-    on cuda:1 against their plain versions there. Returns the note for
-    the phase's last line."""
+    one-process mesh of as many shards; (e)'s overlap over nccl on 2 and
+    on 4 cards (where the host has them), each against the one-process
+    overlap on a mesh of as many shards; then B1 on 4 of the frames, B2
+    and B6 on cuda:1 against their plain versions there. Returns the note
+    for the phase's last line."""
+    from slam_tpu_torch import pipeline
     from slam_tpu_torch.parallel import ranks
     from slam_tpu_torch.parallel import tp_megabundle as tp
     from slam_tpu_torch.parallel.mesh import make_mesh
@@ -2002,24 +2138,55 @@ def nccl_ranks(ck, mega, calib, frames, card) -> str:
                     timeout=RANKS_JOIN_S)
     wall = time.perf_counter() - t0
     check_ranks_ab(d, ref, n, "nccl", card)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = (str(Path(tmp) / "left.npy"), str(Path(tmp) / "right.npy"))
+        np.save(paths[0], L)
+        np.save(paths[1], R)
+        for n_ov in (2, 4):
+            if torch.cuda.device_count() < n_ov:
+                continue
+            ref_ov = drive_path(
+                pipeline, ck, L, R, scene, cfg,
+                ("detect_maps", "mutual_nearest", "cholesky_solve"),
+                f"mesh ranks overlap, one process, {n_ov} shards", card,
+                mesh=make_mesh(n_ov), overlap=True)
+            ov = ranks.spawn(ranks_overlap, n_ov, "nccl", "cuda",
+                             args=(paths, calib, scene.T_w2c, cfg),
+                             timeout=RANKS_JOIN_S)
+            # the BA rank solves on another card than the one-process
+            # reference: the float32 window LM, whose sums on the card
+            # vary in order, may take another accept path there (1.32e-4
+            # measured on 2 cards, NVIDIA H100 80GB HBM3, 700 W; PERF.md),
+            # so the windows' SLICE_TOL holds it
+            check_overlap_ranks(ov, ref_ov, "nccl", card,
+                                rel_tol=SLICE_TOL["poses"])
+            log(f"[mesh ranks] (d) the one-process overlap on {n_ov} shards "
+                f"{ref_ov['timings']['frontend+bundles_overlapped']:.3f} s "
+                f"({card})")
     dev1 = torch.device("cuda", 1)
     gen = torch.Generator(device=dev1)
     gen.manual_seed(SEED)
-    check_b1(ck, torch.as_tensor(frames, device=dev1), "on cuda:1")
+    check_b1(ck, torch.as_tensor(L[:4], device=dev1), "on cuda:1")
     check_b2(ck, b2_inputs(gen, 4, 2048, 2048), None, "on cuda:1")
     check_b6(ck, *spd_systems(gen, 64, 144), "on cuda:1")
     return f"run: {n} nccl ranks on {n} cards in {wall:.1f} s"
 
 
-def mesh_ranks_phase(ck, L, R, scene, cfg, mesh_b, card, tmp) -> None:
+def mesh_ranks_phase(ck, L, R, scene, cfg, mesh_b, overlap_med, card,
+                     tmp) -> None:
     """Phase 4m: (a) the dry run and (b) 4l (e)'s mega-bundle on
     MESH_RANKS gloo ranks sharing the card, (b) held against the
     one-process mesh of as many shards; (c) run_pipeline(mesh=make_mesh())
     on 2 gloo ranks (steps of 2 x 32 frames, 4l (b)'s 64) held against
-    4l (b)'s one-process 4-shard mesh; (d) over nccl, one rank per card,
-    and the kernels on cuda:1, where the host has more than one card."""
+    4l (b)'s one-process 4-shard mesh; (e) the overlap on 2 gloo ranks
+    (a frontend rank and a BA rank) held against the one-process overlap
+    on a 2-shard mesh, its stage beside (c)'s stages in turn and 4l (c)'s
+    one-process overlap (``overlap_med``); (d) over nccl, one rank per
+    card, and the kernels on cuda:1, where the host has more than one
+    card."""
     import dataclasses
 
+    from slam_tpu_torch import pipeline
     from slam_tpu_torch.config import RuntimeConfig
     from slam_tpu_torch.parallel import ranks
     from slam_tpu_torch.parallel import tp_megabundle as tp
@@ -2080,18 +2247,160 @@ def mesh_ranks_phase(ck, L, R, scene, cfg, mesh_b, card, tmp) -> None:
             f"{max(d_ate.values()):.2e}), closures {out['closures']}; "
             f"launches {out['launches']} ({card})")
 
+    # ---- (e) the overlap on 2 ranks: a frontend rank and a BA rank --------
+    stage = "frontend+bundles_overlapped"
+    ref_e = drive_path(pipeline, ck, L, R, scene, cfg, need,
+                       "mesh ranks overlap, one process", card,
+                       mesh=make_mesh(2), overlap=True)
+    t0 = time.perf_counter()
+    e = ranks.spawn(ranks_overlap, 2, "gloo", "cuda",
+                    args=(paths, scene.calib, scene.T_w2c, cfg),
+                    timeout=RANKS_JOIN_S)
+    wall_e = time.perf_counter() - t0
+    check_overlap_ranks(e, ref_e, "gloo", card)
+    in_turn = [sum(out["timings"][k] for k in ("frontend", "trackstore",
+                                               "bundles")) for out in c]
+    log(f"[mesh ranks] (e) beside it, this call: the one-process overlap "
+        f"on 2 shards {ref_e['timings'][stage]:.3f} s; 4m (c)'s stages in "
+        f"turn on 2 ranks (frontend + trackstore + bundles, with the TP "
+        f"re-solves) {' / '.join(f'{v:.3f}' for v in in_turn)} s (rank 0 / "
+        f"1); 4l (c)'s one-process overlap {overlap_med['overlapped']:.3f} s"
+        f", its stages in turn {overlap_med['sequential']:.3f} s with the "
+        f"TP re-solves and {overlap_med['sequential, no TP']:.3f} s without "
+        f"(medians of 3) ({card})")
+
     # ---- (d) nccl, one rank per card ----------------------------------------
     n_cards = torch.cuda.device_count()
     if n_cards > 1:
-        nccl_note = nccl_ranks(ck, mega, scene.calib, L[:4], card)
+        nccl_note = nccl_ranks(ck, mega, scene.calib, L, R, scene, cfg, card)
     else:
         nccl_note = (f"not run: the host has {n_cards} card, and nccl takes "
                      f"one card per rank (the kernels on cuda:1 likewise)")
         log(f"[mesh ranks] (d) nccl with one rank per card {nccl_note}")
     log(f"[mesh ranks] spawns joined within {RANKS_JOIN_S:.0f} s: (a) + (b) "
-        f"{MESH_RANKS} ranks {wall_ab:.1f} s, (c) 2 ranks {wall_c:.1f} s "
-        f"(each with its ranks' start-up and imports); (d) {nccl_note} "
-        f"({card})")
+        f"{MESH_RANKS} ranks {wall_ab:.1f} s, (c) 2 ranks {wall_c:.1f} s, "
+        f"(e) 2 ranks {wall_e:.1f} s (each with its ranks' start-up and "
+        f"imports); (d) {nccl_note} ({card})")
+
+
+# phase 4n: the single-card step (slam_tpu_torch.entry) and the per-image
+# forms. The JAX step's outputs, as jax.eval_shape gives them
+# (tests/test_torch_public_ops.py holds the port's step to them on the
+# CPU)
+ENTRY_OUTPUTS = {"T_rel": ((4, 4, 4), torch.float32),
+                 "num_inliers": ((4,), torch.int32)}
+ENTRY_RUNS = 5
+# the per-image forms run on row PER_IMAGE_ROW of the scene's first
+# PER_IMAGE_BATCH left images, the batched forms on all of them
+PER_IMAGE_BATCH, PER_IMAGE_ROW = 32, 5
+
+
+def entry_phase(ck, card) -> None:
+    """Phase 4n (a): entry()'s step twice on the card with the launch
+    counters zeroed just before: outputs of the JAX step's shapes and
+    dtypes, on the card and finite, B1 and B2 launched and no plain
+    version; then the median of ENTRY_RUNS warm steps."""
+    from slam_tpu_torch.entry import SHAPE, entry
+
+    step, args = entry()
+    ck.reset_counters()
+    for _ in range(2):
+        outs = step(*args)
+    torch.cuda.synchronize()
+    launches, plain = dict(ck.LAUNCHES), dict(ck.PLAIN_CALLS)
+    for (name, (shape, dtype)), x in zip(ENTRY_OUTPUTS.items(), outs):
+        if (tuple(x.shape) != shape or x.dtype != dtype
+                or x.device.type != "cuda"
+                or not torch.isfinite(x.float()).all()):
+            fail(f"entry: {name} {tuple(x.shape)} {x.dtype} on {x.device} "
+                 f"(want {shape} {dtype} on the card, finite)")
+    if not (launches["detect_maps"] and launches["mutual_nearest"]) or any(
+            plain.values()):
+        fail(f"entry: launches {launches}, plain calls {plain}")
+    times = []
+    for _ in range(ENTRY_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"[entry] slam_tpu_torch.entry: one frontend chunk of {SHAPE} "
+        f"stereo frames, T_rel {tuple(outs[0].shape)} {outs[0].dtype}, "
+        f"num_inliers {tuple(outs[1].shape)} {outs[1].dtype} "
+        f"{outs[1].tolist()}; launches in 2 steps {launches}; median of "
+        f"{ENTRY_RUNS} warm steps {float(np.median(times)):.3f} ms (runs "
+        f"{[round(v, 3) for v in times]}) ({card})")
+
+
+def per_image_phase(ck, L, R, cfg, card) -> int:
+    """Phase 4n (b): each per-image form on one frame on the card equal bit
+    for bit to that row of its batched form; ``detect`` on B4 (one launch
+    on a batch of one, no plain call) with xy and valid equal to the
+    batched detect_and_describe_batch's row on B1, and B4's response
+    against B1's on that frame; match_stereo_pair on that frame pair
+    equal to the batched matcher's row. Returns B4's launches on the
+    detect path."""
+    from slam_tpu_torch.models import frontend
+    from slam_tpu_torch.ops import akaze, features, matching, orb, sift
+
+    n, i = PER_IMAGE_BATCH, PER_IMAGE_ROW
+    left = torch.from_numpy(np.ascontiguousarray(L[:n])).cuda()
+    right = torch.from_numpy(np.ascontiguousarray(R[:n])).cuda()
+    forms = {
+        "detect_and_describe": (features.detect_and_describe,
+                                features.detect_and_describe_batch, {}),
+        "detect_and_describe_multiscale": (
+            features.detect_and_describe_multiscale,
+            features.detect_and_describe_multiscale_batch, {}),
+        "detect_and_describe_akaze": (akaze.detect_and_describe_akaze,
+                                      akaze.detect_and_describe_akaze_batch,
+                                      {}),
+        "detect_and_describe_sift": (sift.detect_and_describe_sift,
+                                     sift.detect_and_describe_sift_batch,
+                                     {"octaves": 4}),
+        "detect_and_describe_orb": (orb.detect_and_describe_orb,
+                                    orb.detect_and_describe_orb_batch, {}),
+    }
+    batched = {}
+    for name, (one, many, kw) in forms.items():
+        a, batched[name] = one(left[i], **kw), many(left, **kw)
+        differ = [k for k in a if not torch.equal(a[k], batched[name][k][i])]
+        if differ:
+            fail(f"per-image {name}: {differ} differ from row {i} of the "
+                 f"batched form")
+    ck.reset_counters()
+    det = features.detect(left[i])
+    torch.cuda.synchronize()
+    b4, plain = ck.LAUNCHES["harris_response"], dict(ck.PLAIN_CALLS)
+    if b4 != 1 or any(plain.values()):
+        fail(f"per-image detect: B4 launches {b4}, plain calls {plain}")
+    full = batched["detect_and_describe"]
+    if not (torch.equal(det["xy"], full["xy"][i])
+            and torch.equal(det["valid"], full["valid"][i])):
+        fail(f"per-image detect (B4): xy or valid differ from row {i} of "
+             f"detect_and_describe_batch (B1)")
+    r4, n4 = ck.harris_response(left[i:i + 1])
+    r1, n1, _ = ck.detect_maps(left)
+    d_resp = float((r4[0] - r1[i]).abs().max())
+    same_nms = bool(torch.equal(n4[0], n1[i]))
+    win, _ = frontend.search_windows(cfg.matching)
+    gate = cfg.matching.max_desc_dist
+    feats_r = features.detect_and_describe_batch(right)
+    pair = matching.match_stereo_pair(
+        {k: v[i] for k, v in full.items()},
+        {k: v[i] for k, v in feats_r.items()}, win, gate)
+    rows = matching.match_stereo_pair_batched(full, feats_r, win, gate)
+    if any(not torch.equal(v, rows[k][i]) for k, v in pair.items()):
+        fail(f"per-image match_stereo_pair differs from row {i} of the "
+             f"batched matcher")
+    log(f"[per-image] row {i} of {n} frames {HW} on the card: "
+        f"{', '.join(forms)} and match_stereo_pair ({int(pair['matched'].sum())}"
+        f" stereo matches) equal bit for bit to the batched forms' row; "
+        f"detect on B4 ({b4} launch, no plain call): {int(det['valid'].sum())}"
+        f" keypoints, xy and valid equal to detect_and_describe_batch's on "
+        f"B1; B4's response {d_resp:.3e} from B1's at most, NMS map "
+        f"{'equal' if same_nms else 'differs'} ({card})")
+    return b4
 
 
 def main(argv=None) -> int:
@@ -2572,11 +2881,16 @@ def main(argv=None) -> int:
     # ---- 4k. the sparse pose graph ------------------------------------------
     sparse_pg_phase(pipeline, ck, L, R, scene, cfg, main_path, card)
     # ---- 4l. the mesh and overlap modes, the TP mega-bundle -----------------
-    at_tp, mesh_b = mesh_phase(pipeline, ck, ba, bundle, L, R, scene, cfg,
-                               main_path, card)
+    at_tp, mesh_b, overlap_med = mesh_phase(pipeline, ck, ba, bundle, L, R,
+                                            scene, cfg, main_path, card)
     # ---- 4m. the mesh over ranks --------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
-        mesh_ranks_phase(ck, L, R, scene, cfg, mesh_b, card, Path(tmp))
+        mesh_ranks_phase(ck, L, R, scene, cfg, mesh_b, overlap_med, card,
+                         Path(tmp))
+
+    # ---- 4n. entry() and the per-image forms --------------------------------
+    entry_phase(ck, card)
+    b4_detect = per_image_phase(ck, L, R, cfg, card)
 
     # ---- 5. profile (optional) ---------------------------------------------
     if args.profile:
@@ -2593,12 +2907,15 @@ def main(argv=None) -> int:
     if foreign:
         fail(f"modules of JAX or of the JAX package were imported: "
              f"{foreign[:10]}")
-    # each kernel's launches in the path that runs it; B4's in phase 2b
+    # each kernel's launches in the path that runs it; B4's on the
+    # per-image detect path, beside its launches in phase 2b
     counts = dict(main_path["launches"], orientation_maps=launches_akaze[
         "orientation_maps"], akaze_octave=launches_akaze["akaze_octave"],
-        harris_response=b4_launches)
+        harris_response=b4_detect)
     for k in kernels:
         k["launches"] = counts[k["name"]]
+        if k["name"] == "harris_response":
+            k["launches_phase_2b"] = b4_launches
         if k["name"] == "orientation_maps":
             k["launches_sift"] = sift_path["launches"]["orientation_maps"]
             k["at_sift_octaves"] = b3_sift

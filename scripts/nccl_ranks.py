@@ -1,9 +1,13 @@
 """Phase 4m (d) of chip_smoke.py alone, on a host with several cards: the
 port's dry run and 4l (e)'s mega-bundle over nccl, one rank per card (at
 most 4), the mega-bundle held against the one-process mesh of as many
-shards, then kernels B1, B2 and B6 on cuda:1 against their plain
-versions. chip_smoke.py runs the same checks itself only where the host
-has more than one card.
+shards; the stage overlap (run_pipeline(mesh=make_mesh(), overlap=True)
+on chip_smoke.py's 80-frame scene under SlamConfig()) over nccl on 2 and
+on 4 cards, one rank per card, each against the one-process overlap on a
+mesh of as many shards, with the overlapped stage's seconds per rank;
+then kernels B1, B2 and B6 on cuda:1 against their plain versions.
+chip_smoke.py runs the same checks itself only where the host has more
+than one card.
 
     python3 scripts/nccl_ranks.py
 
@@ -25,6 +29,7 @@ def main() -> int:
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         print("nccl_ranks: needs two CUDA cards or more")
         return 1
+    from slam_tpu_torch.config import SlamConfig
     from slam_tpu_torch.ops import cuda_kernels as ck
     from slam_tpu_torch.utils import synthetic
 
@@ -34,14 +39,15 @@ def main() -> int:
         check=True).stdout.strip().splitlines()
     print(card, torch.cuda.device_count(), flush=True)
     ck.build()
-    # 4 frames of a scene of chip_smoke.py's kind, and its calib
-    scene = synthetic.make_scene(seed=cs.SEED, num_frames=4,
+    # chip_smoke.py's scene
+    scene = synthetic.make_scene(seed=cs.SEED, num_frames=80,
                                  num_landmarks=8000, trajectory="loop",
                                  hw=cs.HW)
-    L, _ = synthetic.render_sequence(scene)
+    L, R = synthetic.render_sequence(scene)
     mega = synthetic.megaproblem(scene.calib, cs.MEGA["P"], cs.MEGA["L"],
                                  cs.MEGA["obs_per_lm"], cs.SEED)
-    print(cs.nccl_ranks(ck, mega, scene.calib, L, card[0]), flush=True)
+    print(cs.nccl_ranks(ck, mega, scene.calib, L, R, scene, SlamConfig(),
+                        card[0]), flush=True)
     return 0
 
 

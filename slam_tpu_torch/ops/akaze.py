@@ -94,3 +94,13 @@ def detect_and_describe_akaze_batch(imgs: torch.Tensor,
         if o + 1 < octaves:
             L = features.downsample2(L)
     return features.stack_levels(levels)
+
+
+def detect_and_describe_akaze(img: torch.Tensor,
+                              max_kp: int = features.DEFAULT_MAX_KP,
+                              octaves: int = 2, steps: int = 6,
+                              threshold: float = 8e-4) -> dict:
+    """:func:`detect_and_describe_akaze_batch` on one (H, W) image."""
+    return features.per_image(detect_and_describe_akaze_batch, img,
+                              max_kp=max_kp, octaves=octaves, steps=steps,
+                              threshold=threshold)

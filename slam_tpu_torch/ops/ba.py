@@ -14,9 +14,10 @@ as the leading dimension where the JAX package vmaps. One window:
 Each (pose, landmark) pair is observed at most once. Pose 0 is frozen
 (gauge). The Hessian blocks are built by ``index_add_`` (the JAX
 package's "scatter" engine; its one-hot and bf16 engines are TPU
-workarounds and are not ported). ``index_add_`` on CUDA sums in a varying
-order, so results agree with the JAX package to float32 rounding, not
-bit for bit.
+workarounds and are not ported, and neither is ``default_engine``, which
+chooses among them by JAX backend). ``index_add_`` on CUDA sums in a
+varying order, so results agree with the JAX package to float32
+rounding, not bit for bit.
 
 Every reduced pose system is solved by kernel B6
 (``cuda_kernels.cholesky_solve``: a batched Cholesky factorization and
@@ -251,10 +252,14 @@ def optimize_bundle(poses, points, cam_idx, lm_idx, meas, w, calib,
 def prune_depth_weights(poses, points, cam_idx, lm_idx, w,
                         min_depth: float = 0.1, max_depth: float = 1000.0):
     """Zero every observation of a landmark that falls behind or too far
-    from ANY observing camera (depth pruning as masking)."""
+    from ANY observing camera (depth pruning as masking). Only lanes that
+    hold an observation (w > 0) count: a padded lane points at landmark 0
+    from camera 0, and the JAX package's ``prune_depth_weights`` counts it
+    too, so there landmark 0 is pruned whenever it lies behind camera 0,
+    observed from it or not (ROADMAP.md queue C)."""
     T, X = _gather_obs(poses, points, cam_idx, lm_idx)
     z = torch.sum(T[..., 2, :3] * X, dim=-1) + T[..., 2, 3]
-    bad_obs = (z < min_depth) | (z > max_depth)
+    bad_obs = ((z < min_depth) | (z > max_depth)) & (w > 0)
     bad_lm = torch.zeros(points.shape[:2], device=w.device).scatter_add_(
         1, lm_idx, bad_obs.float()) > 0
     return torch.where(torch.gather(bad_lm, 1, lm_idx), 0.0, w)

@@ -17,6 +17,7 @@ as ``jnp.argmin``); only the gate and the reported distance are mapped.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import matching
@@ -56,3 +57,22 @@ def hamming_mutual_match(sbits_a, sbits_b, valid_a, valid_b,
         max_dist=base_gate_from_hamming(max_hamming, D), xy_a=xy_a,
         xy_b=xy_b, window=window)
     return dict(out, dist=hamming_from_base(out["dist"], D))
+
+
+def hamming_mutual_match_batched(sbits_a, sbits_b, valid_a, valid_b,
+                                 max_hamming: float = DESC_BITS, xy_a=None,
+                                 xy_b=None, window=None) -> dict:
+    """:func:`hamming_mutual_match` (already batched over pairs) under the
+    JAX package's name."""
+    return hamming_mutual_match(sbits_a, sbits_b, valid_a, valid_b,
+                                max_hamming, xy_a, xy_b, window)
+
+
+def hamming_distance_matrix_ref(sbits_a: np.ndarray, sbits_b: np.ndarray
+                                ) -> np.ndarray:
+    """Host popcount reference for tests: (Ka, D), (Kb, D) signs ->
+    (Ka, Kb) int32 Hamming distances, by XOR of the packed bits."""
+    pa = np.packbits(np.asarray(sbits_a) > 0, axis=-1)
+    pb = np.packbits(np.asarray(sbits_b) > 0, axis=-1)
+    x = np.bitwise_xor(pa[:, None, :], pb[None, :, :])
+    return np.unpackbits(x, axis=-1).sum(axis=-1).astype(np.int32)

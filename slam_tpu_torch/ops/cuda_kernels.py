@@ -20,6 +20,11 @@ Counterpart of ``slam_tpu/ops/pallas_kernels.py``. Six kernels:
                            pose systems (csrc/cholesky_solve.cu); every
                            LM iteration of ops/ba.py.
 
+The JAX package's two thin wrappers over its B2 have their counterparts
+here and in ops/matching.py: ``nearest_neighbor`` below, and
+``mutual_match_pallas``, whose counterpart is ``matching.mutual_match``
+(B2 on the card, with the cross-check and the distance gate).
+
 Each has a plain PyTorch version with the same signature (the wrapper's
 name + ``_plain``). A wrapper takes the plain version only for tensors on
 the CPU; for a CUDA tensor it launches its kernel or raises, on the
@@ -372,16 +377,12 @@ def window_distances(desc_a, desc_b, xy_a=None, xy_b=None, window=None):
     (candidate j is admissible for query i iff x_b[j] - x_a[i] is in
     [dx_min, dx_max] and |y_b[j] - y_a[i]| <= dy_max): the matrix both
     reductions of B2 read, before the validity penalties."""
+    from .matching import window_penalty
+
     a = desc_a.to(torch.bfloat16).float()
     b = desc_b.to(torch.bfloat16).float()
     base = 2.0 - 2.0 * torch.matmul(a, b.transpose(1, 2))
-    if window is not None:
-        dx_min, dx_max, dy_max = (float(v) for v in window)
-        dx = xy_b[:, None, :, 0] - xy_a[:, :, None, 0]
-        dy = torch.abs(xy_b[:, None, :, 1] - xy_a[:, :, None, 1])
-        bad = (dx < dx_min) | (dx > dx_max) | (dy > dy_max)
-        base = base + torch.where(bad, BIG, 0.0)
-    return base
+    return base + window_penalty(xy_a, xy_b, window, big=BIG)
 
 
 def mutual_nearest_plain(desc_a, desc_b, valid_a, valid_b, xy_a=None,
@@ -439,6 +440,20 @@ def mutual_nearest(desc_a, desc_b, valid_a, valid_b, xy_a=None, xy_b=None,
     _check(err, "mutual_nearest")
     LAUNCHES["mutual_nearest"] += 1
     return rdist, ridx, cdist, cidx
+
+
+def nearest_neighbor(desc_a, desc_b, valid_b):
+    """Row-wise nearest neighbours (dist, idx) of A in the valid rows of B
+    (the JAX package's ``nearest_neighbor``): kernel B2 with every row of
+    A valid, its column reduction dropped. One pair (K, D) or a batch of
+    pairs (B, K, D)."""
+    single = desc_a.dim() == 2
+    if single:
+        desc_a, desc_b, valid_b = desc_a[None], desc_b[None], valid_b[None]
+    valid_a = torch.ones(desc_a.shape[:2], dtype=torch.bool,
+                         device=desc_a.device)
+    rdist, ridx, _, _ = mutual_nearest(desc_a, desc_b, valid_a, valid_b)
+    return (rdist[0], ridx[0]) if single else (rdist, ridx)
 
 
 # ---------------------------------------------------------------------------

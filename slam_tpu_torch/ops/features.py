@@ -19,7 +19,14 @@ semantics: every convolution stage treats its own input as zero outside
 the image, as XLA's SAME convolution does, and NMS treats outside as
 -inf.
 
-Images are (F, H, W) float32 in [0, 1].
+Images are (F, H, W) float32 in [0, 1]. The JAX package's per-image
+forms (``detect``, ``detect_and_describe``,
+``detect_and_describe_multiscale``), which it vmaps, are thin calls into
+the batched forms on a batch of one; ``detect`` takes its response from
+kernel B4 (``cuda_kernels.harris_response``). ``build_shifted_cell_maps``
+is not ported: it builds the Pallas B1's bf16 stack of x-shifted cell
+maps, a layout for the TPU's lanes; B1 here gathers the unshifted maps
+(ROADMAP.md, B-redesign 3).
 """
 
 from __future__ import annotations
@@ -250,6 +257,40 @@ def describe(xy: torch.Tensor, valid: torch.Tensor,
     return torch.where(valid[..., None], desc, torch.zeros_like(desc))
 
 
+def detect(img: torch.Tensor, max_kp: int = DEFAULT_MAX_KP, cell: int = 16,
+           border: int = 12, min_response: float = 1e-7,
+           resp: torch.Tensor | None = None,
+           resp_nms: torch.Tensor | None = None) -> dict:
+    """Gridded Harris detection on one (H, W) image: xy (max_kp, 2), resp
+    (max_kp,), valid (max_kp,). Without ``resp`` the response and its NMS
+    map come from kernel B4 on a batch of one (on the CPU its plain
+    version, ``harris_response`` + ``nms``); a ``resp`` given without its
+    NMS map gets ``nms(resp)``."""
+    from .cuda_kernels import harris_response as b4
+
+    if resp is None:
+        resp, resp_nms = b4(img[None].contiguous())
+    else:
+        resp = resp[None]
+        resp_nms = nms(resp) if resp_nms is None else resp_nms[None]
+    det = select_keypoints(resp, resp_nms, max_kp, cell, border,
+                           min_response)
+    return {k: v[0] for k, v in det.items()}
+
+
+def detect_and_describe(img: torch.Tensor,
+                        max_kp: int = DEFAULT_MAX_KP) -> dict:
+    """:func:`detect_and_describe_batch` on one (H, W) image."""
+    return per_image(detect_and_describe_batch, img, max_kp=max_kp)
+
+
+def per_image(batched, img: torch.Tensor, **kw) -> dict:
+    """A batched detector on one (H, W) image, as a batch of one: every
+    output without its leading axis."""
+    return {k: v[0] for k, v in batched(img[None].contiguous(),
+                                        **kw).items()}
+
+
 def detect_and_describe_batch(imgs: torch.Tensor,
                               max_kp: int = DEFAULT_MAX_KP) -> dict:
     """Single-octave detect + describe over (F, H, W) images: kernel B1
@@ -329,3 +370,11 @@ def detect_and_describe_multiscale_batch(imgs: torch.Tensor,
         if lvl + 1 < num_levels:
             level = downsample2(level)
     return stack_levels(levels)
+
+
+def detect_and_describe_multiscale(img: torch.Tensor,
+                                   max_kp: int = DEFAULT_MAX_KP,
+                                   num_levels: int = 2) -> dict:
+    """:func:`detect_and_describe_multiscale_batch` on one (H, W) image."""
+    return per_image(detect_and_describe_multiscale_batch, img,
+                     max_kp=max_kp, num_levels=num_levels)

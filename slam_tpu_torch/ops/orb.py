@@ -162,6 +162,14 @@ def detect_and_describe_orb_batch(imgs: torch.Tensor,
             "resp": det["resp"], "angle": angle}
 
 
+def detect_and_describe_orb(img: torch.Tensor,
+                            max_kp: int = features.DEFAULT_MAX_KP,
+                            threshold: float = 0.06) -> dict:
+    """:func:`detect_and_describe_orb_batch` on one (H, W) image."""
+    return features.per_image(detect_and_describe_orb_batch, img,
+                              max_kp=max_kp, threshold=threshold)
+
+
 def fast_response_ref(img: np.ndarray, threshold: float = 0.06
                       ) -> np.ndarray:
     """Brute-force FAST-9 of one (H, W) image on the host, per start

@@ -161,6 +161,12 @@ def mahalanobis_batched(C, nodes, i, j):
                        torch.sqrt(torch.clamp(d2, min=0.0)))
 
 
+def mahalanobis_distance(C, nodes, i: int, j: int):
+    """:func:`mahalanobis_batched` of the one pair (i, j), a scalar."""
+    idx = torch.as_tensor([i, j], device=nodes.device)
+    return mahalanobis_batched(C, nodes, idx[:1], idx[1:])[0]
+
+
 def gate_matrix(nodes, e_i, e_j, Z, sqrt_info, pair_i, pair_j):
     """Posterior refresh + Mahalanobis sweep over candidate pairs (P,),
     without the covariance leaving the device."""

@@ -8,6 +8,9 @@ meter-level trajectory error, and the detector's convolutions feed the
 subpixel keypoint fit. So both TF32 switches are turned off, once, when
 the package is imported. bf16 stays where the JAX package uses it: the
 matcher's similarity products (ops/matching.py, ops/cuda_kernels.py).
+The JAX package's ``full_precision`` decorator, which scopes JAX's
+matmul precision to one function, has no counterpart: torch's switches
+are process-wide, and the port sets them here for every function.
 """
 
 from __future__ import annotations

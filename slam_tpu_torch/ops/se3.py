@@ -159,6 +159,11 @@ def between(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return inverse(A) @ B
 
 
+def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A @ B for homogeneous matrices."""
+    return A @ B
+
+
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Apply (..., 4, 4) to points (..., N, 3) -> (..., N, 3)."""
     R = rot(T)

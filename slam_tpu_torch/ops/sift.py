@@ -187,3 +187,16 @@ def detect_and_describe_sift_batch(imgs: torch.Tensor,
             level = gauss[intervals][..., ::2, ::2].contiguous()
         del gauss, dogs
     return {key: torch.cat(parts, dim=1) for key, parts in out.items()}
+
+
+def detect_and_describe_sift(img: torch.Tensor,
+                             max_kp: int = features.DEFAULT_MAX_KP,
+                             octaves: int = 3, intervals: int = INTERVALS,
+                             contrast: float = 0.015,
+                             upsample: bool = True) -> dict:
+    """:func:`detect_and_describe_sift_batch` on one (H, W) image (the JAX
+    package's per-image default of 3 octaves)."""
+    return features.per_image(detect_and_describe_sift_batch, img,
+                              max_kp=max_kp, octaves=octaves,
+                              intervals=intervals, contrast=contrast,
+                              upsample=upsample)

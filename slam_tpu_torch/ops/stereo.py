@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import se3
+
 
 def project(calib: torch.Tensor, pts_cam: torch.Tensor) -> torch.Tensor:
     """Camera-frame points (..., 3) -> stereo measurements (..., 3). The
@@ -22,6 +24,47 @@ def project(calib: torch.Tensor, pts_cam: torch.Tensor) -> torch.Tensor:
     uR = fx * (x - b) * inv_z + cx
     v = fy * y * inv_z + cy
     return torch.stack([uL, uR, v], dim=-1)
+
+
+def calib_from_K(K: torch.Tensor, baseline: float) -> torch.Tensor:
+    """A 3x3 intrinsics matrix and a baseline -> the flat float32 calib
+    vector, on K's device."""
+    return torch.stack([K[0, 0], K[1, 1], K[0, 2], K[1, 2],
+                        torch.as_tensor(baseline, device=K.device)]
+                       ).to(torch.float32)
+
+
+def K_from_calib(calib: torch.Tensor) -> torch.Tensor:
+    """The flat calib vector -> its 3x3 intrinsics matrix."""
+    fx, fy, cx, cy = (calib[i] for i in range(4))
+    zero, one = torch.zeros_like(fx), torch.ones_like(fx)
+    return torch.stack([torch.stack([fx, zero, cx]),
+                        torch.stack([zero, fy, cy]),
+                        torch.stack([zero, zero, one])])
+
+
+def project_world(calib: torch.Tensor, T_w2c: torch.Tensor,
+                  pts_world: torch.Tensor) -> torch.Tensor:
+    """World points (..., 3) through extrinsics T_w2c -> stereo
+    measurements."""
+    return project(calib, se3.transform_points(T_w2c, pts_world))
+
+
+def projection_matrices(K: torch.Tensor, T_w2c_left: torch.Tensor,
+                        baseline: float):
+    """The left and right 3x4 projection matrices (the reference's P and
+    Q): the right camera sits ``baseline`` along the left one's x axis, so
+    its extrinsics shift the translation by -baseline in x."""
+    M1 = T_w2c_left[:3, :]
+    M2 = M1.clone()
+    M2[0, 3] -= baseline
+    return K @ M1, K @ M2
+
+
+def monocular_project(calib: torch.Tensor,
+                      pts_cam: torch.Tensor) -> torch.Tensor:
+    """Left-camera pixels (..., 3) -> (..., 2) = (u, v)."""
+    return project(calib, pts_cam)[..., [0, 2]]
 
 
 def project_jacobian(calib: torch.Tensor, pts_cam: torch.Tensor):

@@ -57,9 +57,14 @@ class Mesh:
     as a JAX mesh reports it. ``devices`` are this process's shards (one
     ``torch.device`` each, all the same: ``device``); with ``group`` (a
     process group of W ranks) the mesh spans every rank's shards, and this
-    one holds shards ``rank * len(devices)`` onwards."""
+    one holds shards ``rank * len(devices)`` onwards. ``ranks`` are the
+    group's ranks in the default group, in order (by default asked of the
+    group). A rank outside the group (the other stage group of
+    parallel/stage_overlap.py) gets a mesh with ``rank`` -1 and the
+    group's ``world`` and ``ranks`` as given, which it cannot ask of a
+    group it is not a member of."""
 
-    def __init__(self, devices, axis: str = "dp", group=None):
+    def __init__(self, devices, axis: str = "dp", group=None, ranks=None):
         self.devices = tuple(_canonical(d) for d in devices)
         if not self.devices:
             raise ValueError("a mesh needs at least one shard")
@@ -74,8 +79,19 @@ class Mesh:
                 f"parallel.ranks.spawn)")
         self.axis = axis
         self.group = group
-        self.world = dist.get_world_size(group) if group is not None else 1
-        self.rank = dist.get_rank(group) if group is not None else 0
+        self.ranks = None
+        self.world, self.rank = 1, 0
+        if group is not None:
+            self.ranks = tuple(ranks if ranks is not None
+                               else dist.get_process_group_ranks(group))
+            me = dist.get_rank()
+            self.world = len(self.ranks)
+            self.rank = self.ranks.index(me) if me in self.ranks else -1
+
+    @property
+    def member(self) -> bool:
+        """Whether this process holds shards of the mesh."""
+        return self.rank >= 0
 
     @property
     def local_size(self) -> int:
@@ -102,7 +118,7 @@ class Mesh:
 
     def with_axis(self, axis: str) -> "Mesh":
         """The same shards under another axis name."""
-        return Mesh(self.devices, axis, self.group)
+        return Mesh(self.devices, axis, self.group, self.ranks)
 
 
 def make_mesh(n_devices: int | None = None, axis: str = "dp",

@@ -76,21 +76,36 @@ def frontend_training_step(mesh: Mesh, cfg: SlamConfig, calib,
 
 
 def run_frontend_sharded(images_left: np.ndarray, images_right: np.ndarray,
-                         calib, mesh: Mesh,
-                         cfg: SlamConfig = SlamConfig()
-                         ) -> frontend_mod.FrontendResult:
+                         calib, mesh: Mesh, cfg: SlamConfig = SlamConfig(),
+                         on_chunk=None) -> frontend_mod.FrontendResult:
     """The whole-sequence frontend in steps of ``chunk_frames * mesh.size``
     frames: on the mesh's device, or over its ranks (every rank calls this
-    with the same inputs, and gets the whole result)."""
+    with the same inputs, and gets the whole result). ``on_chunk(start,
+    n, outputs, T_w2c)`` gets each step's host outputs as
+    ``models.frontend.run_frames`` gives them (over ranks, every rank the
+    whole step's, after the host gather)."""
     frames = frontend_mod.ArrayFrames(images_left, images_right)
     if mesh.world == 1:
         return frontend_mod.run_frames(frames, calib, step_config(cfg, mesh),
-                                       mesh.device)
-    return _run_ranks(frames, calib, cfg, mesh)
+                                       mesh.device, on_chunk=on_chunk)
+    return _run_ranks(frames, calib, cfg, mesh, on_chunk)
 
 
-def _run_ranks(frames, calib, cfg: SlamConfig,
-               mesh: Mesh) -> frontend_mod.FrontendResult:
+def rank_chunks(cfg: SlamConfig, mesh: Mesh, num_frames: int) -> tuple:
+    """How the frontend over ``mesh`` makes descriptors: (the config whose
+    chunk is one rank's share of a step, [(start, n)] of every rank's
+    share in frame order). A rank recomputes another rank's descriptors
+    chunk by chunk at that config's batch shape, the one they were made
+    at, so that the bits are the same."""
+    per = cfg.runtime.chunk_frames * mesh.local_size
+    rank_cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, chunk_frames=per))
+    return rank_cfg, [(s, min(per, num_frames - s))
+                      for s in range(0, num_frames, per)]
+
+
+def _run_ranks(frames, calib, cfg: SlamConfig, mesh: Mesh,
+               on_chunk=None) -> frontend_mod.FrontendResult:
     """The frontend over the mesh's ranks (module docstring)."""
     device, keys = mesh.device, frontend_mod.CARRY_KEYS
     per = cfg.runtime.chunk_frames * mesh.local_size  # a rank's frames
@@ -131,6 +146,8 @@ def _run_ranks(frames, calib, cfg: SlamConfig,
         T_carry = T_w2c[-1]
         outs.append(o)
         T_w2c_all.append(T_w2c)
+        if on_chunk is not None:
+            on_chunk(start, n, o, T_w2c)
         for r in range(mesh.world):
             s_r = start + r * per
             n_r = min(per, nF - s_r)
@@ -139,9 +156,7 @@ def _run_ranks(frames, calib, cfg: SlamConfig,
                                     if r == mesh.rank else None))
         carry = {k: torch.from_numpy(last[k][-1]).to(device) for k in keys}
         carry["last_T"] = T_rel[-1]
-    rank_cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
-        cfg.runtime, chunk_frames=per))
     recompute = functools.partial(frontend_mod._recompute_chunks, frames,
-                                  rank_cfg, device)
+                                  rank_chunks(cfg, mesh, nF)[0], device)
     return frontend_mod._assemble_result(outs, T_w2c_all, desc_chunks,
                                          recompute, device)

@@ -20,8 +20,9 @@ unchanged; the frontend resumes from its incremental checkpoint there.
 With ``mesh`` (``parallel.mesh.make_mesh``) the frontend runs in steps
 of ``chunk_frames`` frames per shard, every BA window in one batch, and
 capacity-overflowed windows are re-solved at full size on the TP
-mega-bundle; with ``overlap`` as well, frontend and BA overlap on two
-CUDA streams (parallel/stage_overlap.py), timed as one stage,
+mega-bundle; with ``overlap`` as well, frontend and BA overlap, on two
+CUDA streams in one process and on two groups of ranks over a process
+group (parallel/stage_overlap.py), timed as one stage,
 ``frontend+bundles_overlapped``. Both need in-memory images, and neither
 reuses cached artifacts of the stages it runs.
 
@@ -31,8 +32,10 @@ runs the frontend and the window BA across them, and every rank calls
 results on the host, and the stages after them (the track store, the
 pose graph, loop closure, ``evaluate``) run on every rank from the same
 host arrays, as the JAX package's replicated outputs do. Only rank 0
-logs and writes files. The overlap over more than one rank is not
-ported (parallel/stage_overlap.py raises).
+logs and writes files. With ``overlap`` over ranks the first half of the
+ranks runs the frontend and the rest the window BA, fed window batches
+point to point (parallel/stage_overlap.py); every rank returns the same
+result.
 """
 
 from __future__ import annotations

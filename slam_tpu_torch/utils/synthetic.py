@@ -14,7 +14,11 @@ The landmarks and the texture field are drawn with a numpy
 ``Generator`` from ``seed``, so the same seed gives a different scene
 than the JAX package's ``jax.random`` draws; the trajectories, the
 fractal albedo and the renderer are the same model, and given the same
-scene arrays the renderer gives the same images.
+scene arrays the renderer gives the same images. The renderer is the JAX
+package's host one (``render_frame_np``): its device renderer
+``render_frame`` and ``host_scene``, which pulls a scene's device arrays
+to the host once before a render loop, have no counterpart, since every
+array here is host numpy already.
 """
 
 from __future__ import annotations

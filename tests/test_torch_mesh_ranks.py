@@ -37,7 +37,6 @@ from slam_tpu_torch.parallel import ranks
 from slam_tpu_torch.parallel import sharded_frontend
 from slam_tpu_torch.parallel import tp_megabundle as tp
 from slam_tpu_torch.parallel.dryrun import dryrun_multichip
-from slam_tpu_torch.parallel.stage_overlap import split_mesh
 from slam_tpu_torch.utils import metrics, synthetic
 
 torch.set_num_threads(2)
@@ -106,7 +105,7 @@ def _ranks4(problem) -> dict:
 def _ranks2(problem, batch, L, R, calib, T_gt) -> dict:
     """Every 2-rank case in one run: the TP solve, the window BA on an odd
     window count, the frontend over 2 steps, run_pipeline with the TP
-    re-solve, and the raises that need a process group."""
+    re-solve, and the raise that needs a process group."""
     _check_rank()
     mesh = mesh_mod.make_mesh(device="cpu")
     out = {"rank": mesh.rank, "world": mesh.world, "size": mesh.size,
@@ -127,15 +126,10 @@ def _ranks2(problem, batch, L, R, calib, T_gt) -> dict:
                  ("frontend", "bundles_kf", "pose_graph_kf")},
         "xy": pr.frontend.xy, "match_prev": pr.frontend.match_prev}
     raised = {}
-    for name, call in (
-            ("overlap", lambda: pipeline.run_pipeline(
-                L, R, calib, CFG, verbose=False, mesh=mesh, overlap=True)),
-            ("split_mesh", lambda: split_mesh(mesh)),
-            ("n_devices", lambda: mesh_mod.make_mesh(3, device="cpu"))):
-        try:
-            call()
-        except (NotImplementedError, ValueError) as e:
-            raised[name] = f"{type(e).__name__}: {e}"
+    try:
+        mesh_mod.make_mesh(3, device="cpu")
+    except ValueError as e:
+        raised["n_devices"] = f"{type(e).__name__}: {e}"
     out["raised"] = raised
     return out
 
@@ -470,14 +464,10 @@ def test_pipeline_ranks_match_in_process_mesh(scene, run2):
 
 
 def test_raises_inside_ranks(run2):
-    """Inside a 2-rank group: the overlap (run_pipeline and split_mesh)
-    raises NotImplementedError naming the ranks, and make_mesh(3) raises
-    ValueError (one shard per rank)."""
+    """Inside a 2-rank group make_mesh(3) raises ValueError (one shard per
+    rank). The overlap runs there (tests/test_torch_overlap_ranks.py)."""
     for r in run2:
         raised = r["raised"]
-        assert raised["overlap"].startswith("NotImplementedError")
-        assert "2 ranks" in raised["overlap"]
-        assert raised["split_mesh"] == raised["overlap"]
         assert raised["n_devices"].startswith("ValueError")
         assert "None or 2" in raised["n_devices"]
 

@@ -204,13 +204,14 @@ def test_mesh_or_overlap_with_path_lists_raise(kwargs, tmp_path):
 
 @pytest.mark.parametrize("entry", ["run_pipeline", "run_frontend", "cli",
                                    "scale_run", "pnp_trajectory_from_db",
-                                   "make_mesh"])
+                                   "make_mesh", "entry"])
 def test_default_device_is_the_card(entry, monkeypatch, tmp_path):
     """Called without a device (the CLI and the scale run without
     --cpu), the entry points run on the card; with no card they raise
     instead of quietly taking the plain versions on the CPU."""
     import types
 
+    from slam_tpu_torch import entry as entry_mod
     from slam_tpu_torch import scale_run
     from slam_tpu_torch.__main__ import main as cli_main
     from slam_tpu_torch.models import db_odometry, frontend
@@ -233,6 +234,7 @@ def test_default_device_is_the_card(entry, monkeypatch, tmp_path):
         "pnp_trajectory_from_db": lambda: db_odometry.pnp_trajectory_from_db(
             db, synthetic.KITTI_CALIB),
         "make_mesh": lambda: make_mesh(4),
+        "entry": entry_mod.entry,
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA card"):
         call()
@@ -301,6 +303,9 @@ from slam_tpu_torch.parallel.dryrun import dryrun_multichip
 assert dryrun_multichip(2, backend="gloo", device="cpu").startswith(
     "dryrun_multichip ok: 2 devices")
 import slam_tpu_torch.scale_run, slam_tpu_torch.runtime.tsan
+from slam_tpu_torch.entry import entry
+step, args = entry("cpu")
+assert tuple(step(*args)[0].shape) == (4, 4, 4)
 import slam_tpu_torch.models.db_odometry, slam_tpu_torch.models.covgraph
 import slam_tpu_torch.ops.triangulation, slam_tpu_torch.convert
 
@@ -328,8 +333,9 @@ def test_port_never_imports_jax():
     prefetcher, the stage cache, a checkpoint resume), then the CLI on the
     CPU with its analysis, the mesh and overlap modes and the TP
     mega-bundle, the dry run over two CPU ranks (parallel/ranks.py,
-    parallel/dryrun.py), the SIFT and ORB detectors and the sparse pose
-    graph, and every other module imported: afterwards no
+    parallel/dryrun.py), the single-card step of slam_tpu_torch.entry,
+    the SIFT and ORB detectors and the sparse pose graph, and every other
+    module imported: afterwards no
     module of JAX nor any module of the JAX package (``slam_tpu`` or
     ``slam_tpu.*``) is loaded."""
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
