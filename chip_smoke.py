@@ -61,7 +61,19 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      scene (157 m, 8000 landmarks) on the card, with B1, B2 and B6
      launched (B6 once per LM iteration of BA and of loop closure, by
      shape), no plain version run and every stage's ATE under 1 m; B6's
-     time on the path from its launches and phase 2d's times;
+     time on the path from its launches and phase 2d's times. The path
+     runs from CUDA graphs (runtime.graphs): drive_path warms it until a
+     pass captures no new graph, times a pass, then counts the launches
+     of another under torch.profiler (after a lead pass in the same
+     trace, which may lose its first events, and between two marker
+     kernels) and fails unless the trace holds the same launches of each
+     kernel, by the name of its device function (a replay calls no
+     wrapper: it adds the counts its capture took).
+     B6's counter by shape is in graphs.COUNTERS while the path's graphs
+     are captured, so its replays count too. Phases that swap a function
+     of the path for another (4c's B1 recorder, 4d and 4e's library
+     solve, 4l (a), (b), (d), (e)) run under runtime.graphs.eager(): a
+     replay would not call the new one;
   4b. the AKAZE path: the same, under SlamConfig(features=
      FeatureConfig(detector="akaze"), matching=MatchConfig(norm=
      "hamming")), with B5, B3, B2 and B6 launched and no plain version
@@ -163,7 +175,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      1e-4 and cost within 1e-4 relative, the cost below the initial one,
      ms per LM iteration and peak device memory, and B6 against its plain
      version on every (1, 144, 144) reduced system of a 4-shard run; (f) one BA batch of
-     KITTI 00's 651 windows at full capacity: seconds and peak memory;
+     KITTI 00's 651 windows at full capacity: seconds and peak memory
+     (eagerly, the key's first call), then a second call that captures
+     its graph: seconds, the capture pool's bytes, rel_T within
+     SLICE_TOL of the first;
   4m. the mesh over ranks (`[mesh ranks]` lines), each rank a process of
      its own (slam_tpu_torch.parallel.ranks.spawn, a file:// rendezvous,
      every group joined within 300 s or killed): (a) the port's
@@ -198,6 +213,28 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      bit for bit to that row of its batched form, and detect on kernel B4
      (one launch) with xy and valid equal to detect_and_describe_batch's
      row on B1;
+  4o. the CUDA graphs (runtime.graphs, `[graphs]` lines), all graphs
+     freed first: (c) run_pipeline under graphs.eager() and then three
+     times with graphs (warm-ups, captures, replays): per-stage seconds,
+     frontend frames/s, ATEs (each under 1 m and within 0.01 m of the
+     eager run's), the eager run's closures, kernel launches equal to the
+     eager run's in every graphed run (B1 3, B2 7, B6 70), each graphed
+     function of the main path replayed in the third run, and
+     graphs.stats(); then two more in one torch.profiler trace (a lead
+     run, then a counted one between two marker kernels), all replays,
+     the counted run's launches equal to the trace's by kernel name; (e) peak device memory and the capture pools' bytes;
+     (a) per function, at the main path's shapes, three graphed calls
+     and one on new inputs of the same shapes against the same calls
+     under eager(): the frontend chunk with a carry and
+     recompute_descriptors equal bit for bit (same_frontend's rule), the
+     scene's 16-window batch (window_step) and the first closure's pair
+     refinement within SLICE_TOL (two eager runs' spread: index_add_'s
+     atomic order), loop verification at SPEC_Q x max_candidates with
+     equal inliers and matches; (b) each one's median wall ms eager and
+     graphed, the host's ms to launch the graphed call, and device busy
+     ms of both (torch.profiler); (d) 4e's optimize_bundle at B = 64: ms
+     per LM iteration eager and graphed (wall, host to launch, device
+     busy), the graphed result within SLICE_TOL of the eager one;
   5. with --profile DIR: one more warm run of the main path, and one
      each of the AKAZE, the SIFT and the ORB path, under torch.profiler;
      wall time, device busy time (union of the device events' intervals)
@@ -679,11 +716,17 @@ def synthetic_windows(se3, stereo, calib, B, P, L, M, seed):
 @contextlib.contextmanager
 def solving_with(ba, solve):
     """ops.ba._spd_solve replaced by ``solve`` inside the block: the
-    library solve (B6's plain version) for the A/B phases, or a counter."""
+    library solve (B6's plain version) for the A/B phases, or a counter.
+    The block runs eagerly (runtime.graphs.eager()): a graph replays what
+    its capture launched and calls no Python, so it would neither take
+    the replacement nor count through it."""
+    from slam_tpu_torch.runtime import graphs
+
     saved = ba._spd_solve
     ba._spd_solve = solve
     try:
-        yield
+        with graphs.eager():
+            yield
     finally:
         ba._spd_solve = saved
 
@@ -861,20 +904,95 @@ def profile_path(pipeline, L, R, calib, cfg, out_dir, card,
     log(f"[profile{tag}] written to {path}")
 
 
+# each kernel's device function as a trace names it: every wrapper
+# launches one per call (B1, B3 and B4 are instances of one template)
+TRACE_NAMES = {"detect_maps": "maps_kernel<true, true>",
+               "harris_response": "maps_kernel<true, false>",
+               "orientation_maps": "maps_kernel<false, true>",
+               "akaze_octave": "akaze_octave_kernel<",
+               "mutual_nearest": "mutual_kernel<",
+               "cholesky_solve": "cholesky_solve_kernel<"}
+
+
+def traced_window(fn, lead, reset=None) -> tuple:
+    """lead(), then fn() between two marker kernels, under one
+    torch.profiler trace of the card: (fn()'s result, the trace's device
+    events inside the markers). A trace can drop its first device events
+    as out of range (its conversion of device times to host times drifts;
+    seen on the H100 machines, eagerly too): the lead call takes that
+    loss, and both markers must be in the trace, or the phase fails.
+    ``reset`` runs between the two (the launch counters)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lead()
+        torch.cuda.synchronize()
+        if reset is not None:
+            reset()
+        torch.cuda._sleep(1000)
+        out = fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    marks = sorted(e.time_range.start for e in dev
+                   if "spin_kernel" in e.name)
+    if len(marks) != 2:
+        fail(f"trace: {len(marks)} of its 2 marker kernels among {len(dev)} "
+             f"device events")
+    return out, [e for e in dev if marks[0] < e.time_range.start
+                 and e.time_range.end <= marks[1]]
+
+
+def traced_launches(fn, reset=None) -> tuple:
+    """fn() traced after a lead call of fn() (``traced_window``): (its
+    result, the launches of each kernel of TRACE_NAMES in its trace, and
+    the names of the device functions counted). Kernels replayed from a
+    CUDA graph are in the trace one by one."""
+    out, dev = traced_window(fn, fn, reset)
+    counts = dict.fromkeys(TRACE_NAMES, 0)
+    names = collections.Counter()
+    for e in dev:
+        for k, pat in TRACE_NAMES.items():
+            if pat in e.name:
+                counts[k] += 1
+                names[e.name[:e.name.find(pat) + len(pat) + 12]] += 1
+    return out, counts, dict(names)
+
+
 def drive_path(pipeline, ck, L, R, scene, cfg, required, tag, card,
-               on_reset=None, plain_ok=(), **run_kw):
+               on_reset=None, plain_ok=(), trace=False, **run_kw):
     """run_pipeline + evaluate under ``cfg`` (and ``run_kw``, a mesh) on
-    the card: a warm-up pass
-    (cuDNN / cuBLAS / cuSOLVER handles, allocator), then the measured pass
-    with the launch counters zeroed just before it (``on_reset`` is called
-    there too) and read just after. Fails unless every kernel in
-    ``required`` launched, no plain version ran (but those of
+    the card: warm-up passes
+    (cuDNN / cuBLAS / cuSOLVER handles, allocator; with graphs on, until a
+    pass captures no new graph), then the measured pass with the launch
+    counters zeroed just before it (``on_reset`` is called there too) and
+    read just after. With ``trace`` (the paths whose launches the
+    kernels line reports) the launches come from one more pass, under
+    torch.profiler after a lead pass (``traced_launches``), and must
+    equal the trace's, kernel by kernel, and the measured pass's. Fails unless every
+    kernel in ``required`` launched, no plain version ran (but those of
     ``plain_ok``, which the caller put in on purpose), the trajectory is
     finite, at least one loop closed and every stage's ATE is under 1 m.
-    Returns the measured pass's launches, plain calls, ATEs, closure frame
-    pairs, stage timings and number of BA windows."""
-    pipeline.run_pipeline(L, R, scene.calib, cfg, verbose=False,
-                          device="cuda", **run_kw)
+    Returns the launches, the measured pass's plain calls, ATEs, closure
+    frame pairs, stage timings and number of BA windows."""
+    from slam_tpu_torch.runtime import graphs
+
+    def settled():  # warm-ups and captures so far
+        return sum(st["warmups"] + st["captures"]
+                   for st in graphs.stats().values())
+
+    # warm-up passes until one warms up and captures no graph (the first
+    # call of a key runs eagerly, the second captures it)
+    for _ in range(3):
+        before = settled()
+        pipeline.run_pipeline(L, R, scene.calib, cfg, verbose=False,
+                              device="cuda", **run_kw)
+        if settled() == before:
+            break
     torch.cuda.synchronize()
     ck.reset_counters()
     if on_reset is not None:
@@ -886,6 +1004,21 @@ def drive_path(pipeline, ck, L, R, scene, cfg, required, tag, card,
     wall = time.perf_counter() - t0
     launches = dict(ck.LAUNCHES)
     plain = dict(ck.PLAIN_CALLS)
+    if trace:
+        def reset():
+            ck.reset_counters()
+            if on_reset is not None:
+                on_reset()
+
+        _, traced, names = traced_launches(lambda: pipeline.run_pipeline(
+            L, R, scene.calib, cfg, verbose=False, device="cuda", **run_kw),
+            reset)
+        if dict(ck.LAUNCHES) != launches:
+            fail(f"{tag}: launches {ck.LAUNCHES} in the traced pass, "
+                 f"{launches} in the measured one")
+        if any(traced[k] != launches[k] for k in TRACE_NAMES):
+            fail(f"{tag}: launches counted {launches}, in the trace {traced} "
+                 f"(device functions {names})")
     report = pipeline.evaluate(res, scene.T_w2c)
     if any(launches[k] == 0 for k in required):
         fail(f"{tag}: a kernel of the path was not launched: {launches}")
@@ -912,7 +1045,9 @@ def drive_path(pipeline, ck, L, R, scene, cfg, required, tag, card,
     log(f"[{tag}] closures "
         f"{[(c.frame_i, c.frame_j, c.num_inliers) for c in res.closures]}"
         f"; ATE m {json.dumps(ates)}; pose failures "
-        f"{report['num_pose_failures']}; launches {launches} ({card})")
+        f"{report['num_pose_failures']}; launches {launches}"
+        + (", each equal to the trace's launches of its device function"
+           if trace else "") + f" ({card})")
     return {"launches": launches, "plain": plain, "ates": ates, "timings": t,
             "closures": [(c.frame_i, c.frame_j) for c in res.closures],
             "windows": res.bundles.poses.shape[0], "result": res}
@@ -1344,12 +1479,19 @@ def detector_phase(pipeline, ck, frontend, L, R, scene, cfg, required, tag,
     frontend's peak device memory (one more run_frontend, the peak reset
     just before it), and the first chunk's descriptors recomputed
     (DescriptorBank's resume path) equal bit for bit to that run's."""
-    path = drive_path(pipeline, ck, L, R, scene, cfg, required, tag, card)
+    from slam_tpu_torch.runtime import graphs
+
+    path = drive_path(pipeline, ck, L, R, scene, cfg, required, tag, card,
+                      trace=True)
     chunk = cfg.runtime.chunk_frames
+    pool = graphs.stats()["models.frontend._chunk"]["pool_bytes"]
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    fe = frontend.run_frontend(L, R, scene.calib, cfg, device="cuda")
+    # eagerly, as before the graphs: a replay allocates nothing, its
+    # capture pool (printed beside) holds the body's memory
+    with graphs.eager():
+        fe = frontend.run_frontend(L, R, scene.calib, cfg, device="cuda")
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     first = np.arange(chunk)
@@ -1359,9 +1501,11 @@ def detector_phase(pipeline, ck, frontend, L, R, scene, cfg, required, tag,
     if not torch.equal(rec, fe.desc.gather(first)):
         fail(f"{tag}: recomputed descriptors of chunk 0 differ from the run's")
     log(f"[{tag}] frontend peak device memory {peak / 2**30:.2f} GiB "
-        f"(allocated before it {base / 2**30:.2f} GiB; detection of "
-        f"{2 * chunk} images {HW} at once); chunk 0's descriptors recomputed "
-        f"equal bit for bit ({card})")
+        f"eagerly (allocated before it {base / 2**30:.2f} GiB; detection of "
+        f"{2 * chunk} images {HW} at once); the chunk graph's capture pool "
+        f"{pool / 2**30:.2f} GiB; chunk 0's descriptors recomputed equal bit "
+        f"for bit ({card})")
+    graphs.clear()  # this detector's graphs: none of the later phases
     return dict(path, peak_gib=peak / 2**30)
 
 
@@ -1578,6 +1722,7 @@ def mesh_phase(pipeline, ck, ba, bundle, L, R, scene, cfg, main_path,
     from slam_tpu_torch.parallel import sharded_ba
     from slam_tpu_torch.parallel import tp_megabundle as tp
     from slam_tpu_torch.parallel.mesh import make_mesh
+    from slam_tpu_torch.runtime import graphs
     from slam_tpu_torch.utils import metrics, synthetic
 
     need = ("detect_maps", "mutual_nearest", "cholesky_solve")
@@ -1682,6 +1827,7 @@ def mesh_phase(pipeline, ck, ba, bundle, L, R, scene, cfg, main_path,
     no_tp = dataclasses.replace(cfg, bundle=dataclasses.replace(
         cfg.bundle, tp_overflow=False))
     walls = {k: [] for k in ("sequential", "sequential, no TP", "overlapped")}
+    ba_graphs = graphs.stats()["ops.ba._bundle_and_system"]
     for _ in range(3):
         for k, c_ in (("sequential", cfg), ("sequential, no TP", no_tp)):
             t = pipeline.run_pipeline(L, R, scene.calib, c_, verbose=False,
@@ -1691,6 +1837,16 @@ def mesh_phase(pipeline, ck, ba, bundle, L, R, scene, cfg, main_path,
                                   mesh=mesh1, overlap=True).timings
         walls["overlapped"].append(t["frontend+bundles_overlapped"])
     med = {k: float(np.median(v)) for k, v in walls.items()}
+    # every window batch shape of these runs (the 16-window batch, the
+    # pair, the overlap's flushes) stays cached: no warm-up or capture
+    st = graphs.stats()["ops.ba._bundle_and_system"]
+    if any(st[k] != ba_graphs[k] for k in ("warmups", "captures")):
+        fail(f"mesh (c): the window BA warmed up or captured again in the "
+             f"warm runs: {ba_graphs} before them, {st} after")
+    log(f"[mesh] (c) the window BA's graphs over the warm runs: {st['keys']} "
+        f"keys (at most graphs.MAX_KEYS = {graphs.MAX_KEYS}), "
+        f"{st['replays'] - ba_graphs['replays']} replays, no warm-up, "
+        f"capture or eviction ({st['evictions']} evictions in all) ({card})")
     log(f"[mesh] (c) overlap: keyframes and windows equal to (a)'s, rel_T "
         f"within {d_c:.3e} of phase 4's, closures equal; medians of 3 warm "
         f"runs: frontend + trackstore + bundles {med['sequential']:.3f} s "
@@ -1843,21 +1999,52 @@ def mesh_phase(pipeline, ck, ba, bundle, L, R, scene, cfg, main_path,
     host = [x.cpu().numpy() for x in win]
     step = sharded_ba.ba_training_step(mesh1, scene.calib, iters=bc.lm_iters)
     n_poses = np.full(KITTI00_WINDOWS, bc.max_poses)
+    graphs.clear()  # this batch's graph alone in solve_windows' pools
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
+    reserved = torch.cuda.memory_reserved()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out = step(*host, n_poses)
+    out = step(*host, n_poses)  # the key's first call: eager
     torch.cuda.synchronize()
     wall_f = time.perf_counter() - t0
+    peak_f = torch.cuda.max_memory_allocated() - base
     if not torch.isfinite(out[3]).all() or not (out[3] < out[4]).all():
         fail("mesh (f): a window's cost is not finite or did not fall")
+    # the second call captures the batch's graph and replays it
+    t0 = time.perf_counter()
+    out2 = step(*host, n_poses)
+    torch.cuda.synchronize()
+    wall_f2 = time.perf_counter() - t0
+    pool = graphs.stats()["ops.ba._bundle_and_system"]
+    # two eager runs of the batch differ by index_add_'s atomic order, and
+    # over 651 windows the largest difference can pass SLICE_TOL, which
+    # was set on the scene's 16: the graphed batch is held to SLICE_TOL or
+    # to 4x the spread of a second eager run in this call, the larger
+    with graphs.eager():
+        out3 = step(*host, n_poses)
+    d_f = float((out2[5] - out[5]).abs().max())
+    d_ee = float((out3[5] - out[5]).abs().max())
+    c_f, c_ee = (float(((o[3] - out[3]).abs() / out[3].abs()).max())
+                 for o in (out2, out3))
+    lim_f = max(SLICE_TOL["poses"], 4.0 * d_ee)
+    if pool["captures"] != 1 or not d_f <= lim_f:
+        fail(f"mesh (f): the graphed batch ({pool}) rel_T {d_f:.3e} from "
+             f"the eager one, a second eager run {d_ee:.3e} (limit "
+             f"{lim_f:.3e})")
     log(f"[mesh] (f) {KITTI00_WINDOWS} windows (P={bc.max_poses}, "
         f"L={bc.max_landmarks}, M={bc.max_obs}) in one batch: "
-        f"{wall_f:.2f} s for 2 x {bc.lm_iters} LM iterations, peak device "
-        f"memory {(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} "
-        f"GiB above the {base / 2**30:.2f} GiB held before ({card})")
-    del win, out
+        f"{wall_f:.2f} s for 2 x {bc.lm_iters} LM iterations eagerly (the "
+        f"key's first call), peak device memory {peak_f / 2**30:.2f} GiB "
+        f"above the {base / 2**30:.2f} GiB held before; the second call "
+        f"captured and replayed in {wall_f2:.2f} s, its capture pool "
+        f"{pool['pool_bytes'] / 2**30:.2f} GiB (reserved "
+        f"{reserved / 2**30:.2f} -> {torch.cuda.memory_reserved() / 2**30:.2f}"
+        f" GiB), rel_T {d_f:.3e} from the eager call (limit {lim_f:.3e}), "
+        f"a second eager call {d_ee:.3e}; cost {c_f:.3e} and {c_ee:.3e} "
+        f"relative ({card})")
+    del win, out, out2, out3
+    graphs.clear()
     return [row_d, row_e], b, med
 
 
@@ -2403,6 +2590,382 @@ def per_image_phase(ck, L, R, cfg, card) -> int:
     return b4
 
 
+# phase 4o: the main path's graphed functions (runtime.graphs), each of
+# which must replay in a warm run of the main path
+MAIN_GRAPHS = ("models.frontend._chunk", "ops.ba._bundle_and_system",
+               "models.loop_closure._verify_candidates")
+GRAPH_RUNS = 5
+
+
+def wall_ms(fn, runs: int = GRAPH_RUNS, warm: int = 2) -> float:
+    """Median host ms of fn() up to a synchronize, after ``warm`` calls
+    (a graphed function's first call runs eagerly, its second captures)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def enqueue_ms(fn, runs: int = GRAPH_RUNS) -> float:
+    """Median host ms of fn() without waiting for the device: what the
+    caller's thread spends to launch it (a warm call; the device drained
+    before each)."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def busy_ms(fn, runs: int = 3):
+    """Device busy ms per call of fn(): the union of the device events'
+    intervals in a torch.profiler trace of ``runs`` warm calls (after a
+    lead call, ``traced_window``); None when the trace holds no device
+    event."""
+    _, dev = traced_window(lambda: [fn() for _ in range(runs)], fn)
+    if not dev:
+        return None
+    merged = _merge([(e.time_range.start, e.time_range.end) for e in dev])
+    return _covered(merged, -float("inf"), float("inf")) * 1e-3 / runs
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.3f} ms"
+
+
+def tensors_of(x) -> list:
+    """The tensors of a nest of dicts, tuples and lists, in order."""
+    if torch.is_tensor(x):
+        return [x]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in tensors_of(v)]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in tensors_of(v)]
+    return []
+
+
+def stats_delta(after: dict, before: dict) -> dict:
+    keys = ("warmups", "captures", "replays")
+    return {name: {k: st[k] - before.get(name, {}).get(k, 0) for k in keys}
+            for name, st in after.items()
+            if any(st[k] != before.get(name, {}).get(k, 0) for k in keys)}
+
+
+def graphs_phase(pipeline, ck, graphs, L, R, scene, cfg, card) -> None:
+    """Phase 4o (module docstring): the main path's CUDA graphs against
+    eager runs, per function and end to end."""
+    from slam_tpu_torch.models import bundle, frontend, loop_closure
+    from slam_tpu_torch.ops import ba, se3
+    from slam_tpu_torch.ops import ransac as ransac_ops
+    from slam_tpu_torch.ops import stereo as stereo_ops
+
+    t_phase = time.perf_counter()
+    calib_t = torch.tensor(scene.calib, device="cuda")
+    graphs.clear()
+
+    # ---- (c), (e) the main path under eager() and with graphs ------------
+    def run(trace=False):
+        torch.cuda.synchronize()
+        ck.reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        before = graphs.stats()
+        t0 = time.perf_counter()
+        res, traced, names = traced_launches(lambda: pipeline.run_pipeline(
+            L, R, scene.calib, cfg, verbose=False, device="cuda"),
+            ck.reset_counters) if trace \
+            else (pipeline.run_pipeline(L, R, scene.calib, cfg, verbose=False,
+                                        device="cuda"), None, None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rep = pipeline.evaluate(res, scene.T_w2c)
+        return {"result": res, "wall": wall, "launches": dict(ck.LAUNCHES),
+                "traced": traced, "names": names,
+                "plain": dict(ck.PLAIN_CALLS),
+                "peak": torch.cuda.max_memory_allocated(),
+                "reserved": torch.cuda.memory_reserved(),
+                "stats": stats_delta(graphs.stats(), before),
+                "ates": {k: rep[k]["ate_rmse_m"] for k in STAGE_ATES
+                         if k in rep},
+                "closures": [(c.frame_i, c.frame_j) for c in res.closures]}
+
+    with graphs.eager():
+        run()
+        eager = run()
+    # warm-ups, captures, replays; then one more under torch.profiler
+    graphed = [run() for _ in range(3)] + [run(trace=True)]
+    warm, traced = graphed[2:]
+    n_frames = L.shape[0]
+    labels = ["eager"] + [f"graphed run {i + 1}" for i in range(3)] + [
+        "graphed runs 4 and 5 (under torch.profiler, launches of run 5)"]
+    for label, r in zip(labels, [eager] + graphed):
+        t = r["result"].timings
+        log(f"[graphs] (c) main path {label}: wall {r['wall']:.3f} s, stages "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in t.items())
+            + f"; frontend {n_frames / t['frontend']:.1f} frames/s; ATE m "
+            f"{json.dumps(r['ates'])}; closures {r['closures']}; launches "
+            f"{r['launches']}; graphs {json.dumps(r['stats'])} ({card})")
+        if any(r["plain"].values()):
+            fail(f"graphs (c) {label}: a plain version ran: {r['plain']}")
+        if r["launches"] != eager["launches"]:
+            fail(f"graphs (c) {label}: launches {r['launches']}, under "
+                 f"eager() {eager['launches']}")
+        for k, v in r["ates"].items():
+            if not (np.isfinite(v) and v < 1.0):
+                fail(f"graphs (c) {label}: ATE {k} = {v} m (limit 1.0 m)")
+        if r["closures"] != eager["closures"] or not r["closures"]:
+            fail(f"graphs (c) {label}: closures {r['closures']}, under "
+                 f"eager() {eager['closures']}")
+        d_ate = max(abs(r["ates"][k] - v) for k, v in eager["ates"].items())
+        if not d_ate <= 0.01:
+            fail(f"graphs (c) {label}: ATE {r['ates']} vs eager "
+                 f"{eager['ates']} (limit 0.01 m apart)")
+    n_closures = len(warm["closures"])
+    for name in MAIN_GRAPHS:
+        st = warm["stats"].get(name, {})
+        need = 1 + n_closures if name == "ops.ba._bundle_and_system" else 1
+        if st.get("replays", 0) < need:
+            fail(f"graphs (c): {name} replayed {st.get('replays', 0)} times "
+                 f"in the warm run (want >= {need}): {warm['stats']}")
+    if any(st["warmups"] or st["captures"]
+           for st in traced["stats"].values()):
+        fail(f"graphs (c): the traced run warmed up or captured: "
+             f"{traced['stats']}")
+    if any(traced["traced"][k] != traced["launches"][k]
+           for k in TRACE_NAMES):
+        fail(f"graphs (c): the traced run counted {traced['launches']}, its "
+             f"trace holds {traced['traced']} ({traced['names']})")
+    log(f"[graphs] (c) graphed runs 4 and 5, every graph replaying, under "
+        f"torch.profiler: run 5's launches counted {traced['launches']}, in "
+        f"the trace by device function {traced['names']} ({card})")
+    pools = {n: st["pool_bytes"] for n, st in graphs.stats().items()
+             if st["pool_bytes"]}
+    log(f"[graphs] (c) warm run: every main-path function replayed "
+        f"({', '.join(MAIN_GRAPHS)}); launches equal under eager() and "
+        f"with graphs: {eager['launches']}; graphs.stats() "
+        f"{json.dumps(graphs.stats())} ({card})")
+    gib = 2.0 ** 30
+    log(f"[graphs] (e) peak device memory of the main path: eager "
+        f"{eager['peak'] / gib:.3f} GiB allocated, "
+        f"{eager['reserved'] / gib:.3f} GiB reserved; graphed (warm run) "
+        f"{warm['peak'] / gib:.3f} GiB "
+        f"allocated, {warm['reserved'] / 2**30:.3f} GiB reserved; capture "
+        f"pools {sum(pools.values()) / 2**30:.3f} GiB in all, by function "
+        f"{json.dumps({k: round(v / 2**20, 1) for k, v in pools.items()})} "
+        f"MiB ({card})")
+
+    # ---- (a), (b) per function: graph against eager, times ----------------
+    res = eager["result"]
+    fe, db = res.frontend, res.db
+
+    def timed(label, fn, fn_new, check):
+        """fn under eager() and graphed (two calls, then warm), each
+        compared by ``check``; fn_new, new inputs of the same shapes, the
+        same; then the times."""
+        with graphs.eager():
+            want, want_new = fn(), fn_new()
+        got = [fn() for _ in range(3)]
+        got_new = fn_new()
+        diffs = [check(g, want) for g in got] + [check(got_new, want_new)]
+        with graphs.eager():
+            e_wall = wall_ms(fn, warm=1)
+            e_busy = busy_ms(fn)
+        g_wall = wall_ms(fn)
+        g_busy = busy_ms(fn)
+        g_host = enqueue_ms(fn)
+        log(f"[graphs] (a) {label}: graphed against eager {diffs[-2]}, on "
+            f"new inputs {diffs[-1]}; (b) median of {GRAPH_RUNS} wall: eager "
+            f"{e_wall:.3f} ms, graphed {g_wall:.3f} ms (host to launch "
+            f"{g_host:.3f} ms); device busy eager {fmt_ms(e_busy)}, graphed "
+            f"{fmt_ms(g_busy)} ({card})")
+
+    def bitwise(a, b):
+        ta, tb = tensors_of(a), tensors_of(b)
+        if len(ta) != len(tb) or not all(
+                x.shape == y.shape and torch.equal(x, y)
+                for x, y in zip(ta, tb)):
+            fail("graphs (a): a frontend output differs from eager (limit: "
+                 "equal bit for bit, as same_frontend)")
+        return f"equal bit for bit ({len(ta)} tensors; limit: equal)"
+
+    chunk = cfg.runtime.chunk_frames
+
+    def chunk_imgs(i):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        return tuple(torch.from_numpy(np.ascontiguousarray(x[sl])).cuda()
+                     for x in (L, R))
+
+    def process(imgs, carry, i):
+        # a generator made anew per call: eager and graphed draw the same
+        return frontend.process_chunk(*imgs, carry, calib_t, cfg,
+                                      frontend.chunk_generator(cfg, i,
+                                                               "cuda"))
+
+    c0, c1 = chunk_imgs(0), chunk_imgs(1)
+    with graphs.eager():
+        _, carry0 = process(c0, None, 0)
+        _, carry1 = process(c1, carry0, 1)
+    timed(f"frontend chunk (process_chunk, {chunk} frames {HW}, with a "
+          f"carry)", lambda: process(c1, carry0, 1),
+          lambda: process(c0, carry1, 2), bitwise)
+    timed(f"recompute_descriptors ({chunk} frames)",
+          lambda: frontend.recompute_descriptors(*c1, cfg),
+          lambda: frontend.recompute_descriptors(*c0, cfg), bitwise)
+
+    def windows_close(a, b):
+        d_pose = float((a[0] - b[0]).abs().max())
+        d_rel = float((a[5] - b[5]).abs().max())
+        d_cost = float(((a[3] - b[3]).abs() / b[3].abs().clamp(
+            min=1e-12)).max())
+        d_cov = float((a[6] - b[6]).norm() / b[6].norm())
+        if not (max(d_pose, d_rel) <= SLICE_TOL["poses"]
+                and d_cost <= SLICE_TOL["cost"]):
+            fail(f"graphs (a): windows poses {d_pose:.3e} / rel_T "
+                 f"{d_rel:.3e} (limit {SLICE_TOL['poses']}), cost "
+                 f"{d_cost:.3e} relative (limit {SLICE_TOL['cost']})")
+        return (f"poses {d_pose:.3e}, rel_T {d_rel:.3e} (limit "
+                f"{SLICE_TOL['poses']}), cost {d_cost:.3e} relative (limit "
+                f"{SLICE_TOL['cost']}), rel_cov {d_cov:.3e} relative "
+                f"Frobenius (no limit)")
+
+    bc = cfg.bundle
+    batch = bundle.build_windows(db, fe.T_w2c, res.bundles.keyframes, bc)
+    bundle.init_landmarks(batch, scene.calib)
+    B = batch.num_windows
+    step = bundle.window_step(scene.calib, torch.device("cuda"),
+                              iters=bc.lm_iters, min_depth=bc.min_depth,
+                              max_depth=bc.max_depth,
+                              huber_delta=bc.huber_delta_px)
+    inp = bundle.window_inputs(batch, 0, B, B)
+    inp_new = tuple(np.ascontiguousarray(a[::-1]) for a in inp)
+    timed(f"window BA (window_step: solve_windows, {B} windows, P="
+          f"{bc.max_poses}, L={bc.max_landmarks}, M={bc.max_obs}, 2 x "
+          f"{bc.lm_iters} LM iterations and the covariances)",
+          lambda: step(*inp), lambda: step(*inp_new), windows_close)
+
+    kfs = list(res.bundles.keyframes)
+    C, Q = cfg.loop.max_candidates, loop_closure.SPEC_Q
+    K = cfg.features.max_kp
+
+    def verify_args(q_frames, c_frames):
+        f_q = np.repeat(q_frames, C)
+        f_c = np.resize(np.asarray(c_frames), Q * C)
+        u = ransac_ops.hypothesis_uniforms(
+            Q * C, K, cfg.ransac.num_hypotheses,
+            torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+
+        def dev(x):
+            return torch.as_tensor(x, device="cuda")
+
+        return (fe.desc[f_q], dev(fe.valid[f_q]), dev(db.links[f_q]),
+                dev(db.link_valid[f_q]), fe.desc[f_c], dev(fe.valid[f_c]),
+                dev(db.links[f_c]), dev(db.link_valid[f_c]), calib_t, u,
+                cfg.ransac.threshold_px)
+
+    v_args = verify_args(kfs[-Q:], kfs[:C])
+    v_new = verify_args(kfs[-2 * Q:-Q], kfs[1:C + 1])
+
+    def verify_close(a, b):
+        same = all(torch.equal(a[k], b[k])
+                   for k in ("num_inliers", "ok", "match_tgt", "inliers"))
+        d_T = float((a["T"] - b["T"]).abs().max())
+        if not same or not d_T <= SLICE_TOL["poses"]:
+            fail(f"graphs (a): verification inliers equal {same}, T "
+                 f"{d_T:.3e} (limit {SLICE_TOL['poses']})")
+        return (f"inliers and matches equal, T {d_T:.3e} (limit "
+                f"{SLICE_TOL['poses']})")
+
+    timed(f"loop verification (_verify_candidates, {Q} x {C} pairs, K={K}, "
+          f"{cfg.ransac.num_hypotheses} hypotheses)",
+          lambda: loop_closure._verify_candidates(*v_args),
+          lambda: loop_closure._verify_candidates(*v_new), verify_close)
+
+    # the pair refinement on the first closure's own correspondences
+    cl = res.closures[0]
+    with graphs.eager():
+        vr = loop_closure._verify_candidates(*verify_args(
+            [cl.frame_j] * Q, [cl.frame_i] * C))
+    inl, tgt = vr["inliers"][0].cpu().numpy(), vr["match_tgt"][0].cpu().numpy()
+    T0 = vr["T"][0].cpu().numpy()
+    T0_new = T0.copy()
+    T0_new[:3, 3] += 0.05
+
+    def refine(T_init):
+        return loop_closure._refine_pair(
+            db.links[cl.frame_i], db.links[cl.frame_j], inl, tgt, T_init,
+            scene.calib, calib_t, max_landmarks=bc.max_landmarks)
+
+    def pair_close(a, b):
+        d_T = float(np.abs(a[0] - b[0]).max())
+        d_cov = float(np.linalg.norm(a[1] - b[1]) / np.linalg.norm(b[1]))
+        if not d_T <= SLICE_TOL["poses"]:
+            fail(f"graphs (a): pair rel_T {d_T:.3e} (limit "
+                 f"{SLICE_TOL['poses']})")
+        return (f"rel_T {d_T:.3e} (limit {SLICE_TOL['poses']}), rel_cov "
+                f"{d_cov:.3e} relative Frobenius (no limit)")
+
+    timed(f"pair refinement (_refine_pair: solve_windows at (1, 2, "
+          f"{bc.max_landmarks}), 2 x 15 LM iterations, {int(inl.sum())} "
+          f"inliers; with its uploads and read-back)", lambda: refine(T0),
+          lambda: refine(T0_new), pair_close)
+
+    # ---- (d) phase 4e's optimize_bundle at B = 64 --------------------------
+    win = synthetic_windows(se3, stereo_ops, calib_t, 64, bc.max_poses,
+                            bc.max_landmarks, bc.max_obs, SEED)
+    it = bc.lm_iters
+
+    def ob():
+        return ba.optimize_bundle(*win, calib_t, iters=it)
+
+    # two eager runs differ by index_add_'s atomic order; on these 64
+    # synthetic windows an LM step taken or refused on one window can
+    # move a pose past SLICE_TOL (one call's graphed run ended 2.04e-4
+    # from eager, its cost 1.4e-6): the poses are held to SLICE_TOL or to
+    # 4x the largest spread of three more eager runs, the larger
+    with graphs.eager():
+        want = ob()
+        d_ee = max(float((o[0] - want[0]).abs().max())
+                   for o in (ob() for _ in range(3)))
+        e_ms = wall_ms(ob, runs=3, warm=1) / it
+        e_host = enqueue_ms(ob, runs=3) / it
+        e_busy = busy_ms(ob, runs=1)
+    got = [ob() for _ in range(3)]
+    d_cost = float(((got[-1][2] - want[2]).abs() / want[2]).max())
+    d_pose = float((got[-1][0] - want[0]).abs().max())
+    lim_pose = max(SLICE_TOL["poses"], 4.0 * d_ee)
+    if not (d_cost <= SLICE_TOL["cost"] and d_pose <= lim_pose):
+        fail(f"graphs (d): optimize_bundle graphed vs eager: cost "
+             f"{d_cost:.3e} relative (limit {SLICE_TOL['cost']}), poses "
+             f"{d_pose:.3e} (limit {lim_pose:.3e}; eager runs {d_ee:.3e} "
+             f"apart)")
+    g_ms = wall_ms(ob, runs=3) / it
+    g_host = enqueue_ms(ob, runs=3) / it
+    g_busy = busy_ms(ob, runs=1)
+    e_busy, g_busy = (None if b_ is None else b_ / it
+                      for b_ in (e_busy, g_busy))
+    log(f"[graphs] (d) optimize_bundle (64, P={bc.max_poses}, "
+        f"L={bc.max_landmarks}, M={bc.max_obs}), {it} iterations, ms per LM "
+        f"iteration (median of 3): eager {e_ms:.3f} wall, {e_host:.3f} host "
+        f"to launch, device busy {fmt_ms(e_busy)}; graphed {g_ms:.3f} wall, "
+        f"{g_host:.3f} host to launch, device busy {fmt_ms(g_busy)}; graphed "
+        f"vs eager "
+        f"cost {d_cost:.3e} relative (limit {SLICE_TOL['cost']}), poses "
+        f"{d_pose:.3e} (limit {lim_pose:.3e}), eager runs {d_ee:.3e} apart "
+        f"({card})")
+    del win, got, want
+    graphs.clear()
+    log(f"[graphs] phase 4o took {time.perf_counter() - t_phase:.1f} s "
+        f"({card})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2425,6 +2988,7 @@ def main(argv=None) -> int:
     from slam_tpu_torch.ops import akaze, ba, binary, features, se3, sift
     from slam_tpu_torch.ops import stereo as stereo_ops
     from slam_tpu_torch.ops import cuda_kernels as ck
+    from slam_tpu_torch.runtime import graphs
     from slam_tpu_torch.utils import metrics, synthetic
 
     cfg = SlamConfig()
@@ -2708,8 +3272,11 @@ def main(argv=None) -> int:
         return 0
 
     # ---- 4. main path -------------------------------------------------------
-    # the default SlamConfig(); ba._spd_solve is wrapped to count the
-    # measured pass's LM iterations by shape, each of which launches B6 once
+    # the default SlamConfig(), from CUDA graphs; ba._spd_solve is wrapped
+    # to count the counted pass's LM iterations by shape, each of which
+    # launches B6 once. The graphs are captured calling the wrapper, with
+    # its counter in graphs.COUNTERS, so each replay adds its capture's
+    # counts to it as to the launches (the wrapper launches what B6 does)
     solves = collections.Counter()
     b6_solve = ba._spd_solve
 
@@ -2717,11 +3284,17 @@ def main(argv=None) -> int:
         solves[tuple(S.shape)] += 1
         return b6_solve(S, g)
 
-    with solving_with(ba, counting):
+    graphs.clear()
+    ba._spd_solve = counting
+    graphs.COUNTERS.append(solves)
+    try:
         main_path = drive_path(
             pipeline, ck, L, R, scene, cfg,
             ("detect_maps", "mutual_nearest", "cholesky_solve"), "path", card,
-            on_reset=solves.clear)
+            on_reset=solves.clear, trace=True)
+    finally:
+        ba._spd_solve = b6_solve
+        graphs.COUNTERS.remove(solves)
     b6_launches = main_path["launches"]["cholesky_solve"]
     if b6_launches != sum(solves.values()):
         fail(f"path: {b6_launches} B6 launches for {dict(solves)} LM "
@@ -2745,7 +3318,8 @@ def main(argv=None) -> int:
     launches_akaze = drive_path(
         pipeline, ck, L, R, scene, cfg_akaze,
         ("akaze_octave", "orientation_maps", "mutual_nearest",
-         "cholesky_solve"), "path akaze", card)["launches"]
+         "cholesky_solve"), "path akaze", card, trace=True)["launches"]
+    graphs.clear()  # AKAZE's graphs: none of the later phases
 
     # ---- 4c. multiscale Harris ----------------------------------------------
     # B1 at every pyramid level; the level shapes are recorded through the
@@ -2758,16 +3332,19 @@ def main(argv=None) -> int:
         shapes.add(tuple(imgs.shape))
         return detect_maps(imgs, *a, **kw)
 
+    # eagerly: a graph's replay would not call the recording wrapper
     ck.detect_maps = recording
     try:
-        frontend.run_frontend(L, R, scene.calib, cfg_ms, device="cuda")
-        torch.cuda.synchronize()
-        shapes.clear()
-        ck.reset_counters()
-        t0 = time.perf_counter()
-        fr = frontend.run_frontend(L, R, scene.calib, cfg_ms, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with graphs.eager():
+            frontend.run_frontend(L, R, scene.calib, cfg_ms, device="cuda")
+            torch.cuda.synchronize()
+            shapes.clear()
+            ck.reset_counters()
+            t0 = time.perf_counter()
+            fr = frontend.run_frontend(L, R, scene.calib, cfg_ms,
+                                       device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
     finally:
         ck.detect_maps = detect_maps
     want = {(2 * chunk, HW[0], HW[1]),
@@ -2891,6 +3468,9 @@ def main(argv=None) -> int:
     # ---- 4n. entry() and the per-image forms --------------------------------
     entry_phase(ck, card)
     b4_detect = per_image_phase(ck, L, R, cfg, card)
+
+    # ---- 4o. the CUDA graphs ------------------------------------------------
+    graphs_phase(pipeline, ck, graphs, L, R, scene, cfg, card)
 
     # ---- 5. profile (optional) ---------------------------------------------
     if args.profile:

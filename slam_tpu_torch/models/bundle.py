@@ -315,7 +315,9 @@ def window_step(calib, device: torch.device, iters: int = 20,
     rel_cov), host numpy in (as ``window_inputs`` gives it; uploaded from
     pinned memory on the card), device tensors out, launched on the
     current stream without waiting for the device. rel_T and rel_cov are
-    each window's last pose and its covariance."""
+    each window's last pose and its covariance. Everything between the
+    uploads and the read-back is ``ops.ba.solve_windows``, one CUDA graph
+    per window batch shape on the card."""
     cuda = device.type == "cuda"
     calib_t = torch.as_tensor(np.asarray(calib, np.float32), device=device)
 
@@ -330,16 +332,10 @@ def window_step(calib, device: torch.device, iters: int = 20,
     def step(poses0, points0, cam_idx, lm_idx, meas, w, n_poses):
         p0, x0, ms, ww = (upload(a) for a in (poses0, points0, meas, w))
         ci, li = (upload(a, torch.int64) for a in (cam_idx, lm_idx))
-        cost0 = ba._cost(p0, x0, ci, li, ms, ww, calib_t)
-        poses, points, w2, cost = ba.optimize_bundle_pruned(
-            p0, x0, ci, li, ms, ww, calib_t, iters=iters,
-            min_depth=min_depth, max_depth=max_depth,
-            huber_delta=huber_delta)
-        covs = ba.pose_covariances(poses, points, ci, li, ms, w2, calib_t)
         last = upload(np.asarray(n_poses) - 1, torch.int64)
-        b = torch.arange(poses.shape[0], device=device)
-        return (poses, points, w2, cost, cost0, poses[b, last],
-                covs[b, last])
+        return ba.solve_windows(p0, x0, ci, li, ms, ww, last, calib_t,
+                                iters=iters, min_depth=min_depth,
+                                max_depth=max_depth, huber_delta=huber_delta)
 
     return step
 

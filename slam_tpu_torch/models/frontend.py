@@ -49,6 +49,7 @@ import torch
 from ..config import SlamConfig
 from ..ops import (akaze, binary, cuda_kernels, features, matching, orb,
                    ransac, sift, stereo)
+from ..runtime import graphs
 
 
 class DescriptorBank:
@@ -295,6 +296,18 @@ def chunk_motion(feats: dict, carry: dict | None, calib: torch.Tensor,
     total): the chunk is rows offset.. of a RANSAC draw for ``total``
     frames from ``generator`` (a rank's share of a mesh step)."""
     F, K = feats["xy"].shape[:2]
+    u = ransac.hypothesis_uniforms(F, K, cfg.ransac.num_hypotheses,
+                                   generator, feats["xy"].device, draw_rows)
+    return _motion(feats, carry, calib, u, cfg)
+
+
+def _motion(feats: dict, carry: dict | None, calib: torch.Tensor,
+            uniforms: torch.Tensor, cfg: SlamConfig) -> dict:
+    """``chunk_motion`` on RANSAC's uniforms (F, H, K) drawn beforehand."""
+    F, K = feats["xy"].shape[:2]
+    if uniforms.shape != (F, cfg.ransac.num_hypotheses, K):
+        raise ValueError(f"uniforms {tuple(uniforms.shape)} for {F} frames "
+                         f"of {K} keypoints")
     max_dist = _max_dist(cfg, feats)
     _, temporal_win = search_windows(cfg.matching)
     desc, valid, xy = feats["desc"], feats["valid"], feats["xy"]
@@ -316,7 +329,7 @@ def chunk_motion(feats: dict, carry: dict | None, calib: torch.Tensor,
                            num_hypotheses=cfg.ransac.num_hypotheses,
                            threshold=cfg.ransac.threshold_px,
                            refine_iters=cfg.ransac.refine_iters,
-                           generator=generator, draw_rows=draw_rows)
+                           uniforms=uniforms)
     pose_ok = rr["ok"] & (rr["num_inliers"] >= cfg.ransac.min_inliers)
 
     # per-slot bookkeeping in cur-frame slot space; prev -> cur matches are
@@ -368,10 +381,25 @@ def process_chunk(chunk_left: torch.Tensor, chunk_right: torch.Tensor,
                   generator: torch.Generator | None = None):
     """One chunk of frames on the device. Images (F, H, W) uint8 or float32
     in [0, 1]. With ``carry`` (the previous chunk's last frame) the first
-    frame is also matched against it. RANSAC draws from ``generator``.
-    Returns (per-frame dict, new carry)."""
+    frame is also matched against it. RANSAC draws from ``generator``,
+    before the chunk's work. Returns (per-frame dict, new carry)."""
+    F = chunk_left.shape[0]
+    u = ransac.hypothesis_uniforms(F, cfg.features.max_kp,
+                                   cfg.ransac.num_hypotheses, generator,
+                                   chunk_left.device)
+    return _chunk(chunk_left, chunk_right, carry, calib, u, cfg)
+
+
+@graphs.graphed(static=("cfg",))
+def _chunk(chunk_left: torch.Tensor, chunk_right: torch.Tensor,
+           carry: dict | None, calib: torch.Tensor, uniforms: torch.Tensor,
+           cfg: SlamConfig):
+    """``process_chunk`` on RANSAC's uniforms drawn beforehand: on the
+    card one CUDA graph per chunk shape, the counterpart of the JAX
+    package's jitted chunk (the first chunk, with no carry, under a key
+    of its own)."""
     feats = chunk_features(chunk_left, chunk_right, cfg)
-    mot = chunk_motion(feats, carry, calib, cfg, generator)
+    mot = _motion(feats, carry, calib, uniforms, cfg)
     T_rel, T_chain = chunk_poses(mot.pop("T_est"), mot["pose_ok"],
                                  None if carry is None else carry["last_T"])
     out = {"xy": feats["xy"], "desc": feats["desc"].half(),
@@ -392,6 +420,7 @@ def chunk_generator(cfg: SlamConfig, chunk_index: int,
     return g
 
 
+@graphs.graphed(static=("cfg",))
 def recompute_descriptors(chunk_left: torch.Tensor,
                           chunk_right: torch.Tensor,
                           cfg: SlamConfig) -> torch.Tensor:

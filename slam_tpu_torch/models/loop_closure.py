@@ -29,6 +29,7 @@ import torch
 
 from ..config import LoopConfig, SlamConfig
 from ..ops import ba, matching, ransac, stereo
+from ..runtime import graphs
 from .frontend import _pair_correspondences
 from .pose_graph import PoseGraph
 from .trackstore import TrackStore
@@ -49,19 +50,20 @@ class Closure:
     mahalanobis: float
 
 
+@graphs.graphed(static=("threshold",))
 def _verify_candidates(desc_q, valid_q, links_q, lvalid_q, desc_c, valid_c,
-                       links_c, lvalid_c, calib, num_hypotheses: int,
-                       threshold: float, generator=None):
+                       links_c, lvalid_c, calib, uniforms, threshold: float):
     """Match + RANSAC of P (query, candidate) keyframe pairs at once, all
-    inputs with a leading pair dimension. The pose maps the candidate
-    (earlier) camera to the query (later) one. Returns per-pair
-    num_inliers, frac, T, ok, match_tgt, inliers."""
+    inputs with a leading pair dimension, RANSAC on the uniforms
+    (P, H, K) drawn beforehand. The pose maps the candidate (earlier)
+    camera to the query (later) one. Returns per-pair num_inliers, frac,
+    T, ok, match_tgt, inliers. One CUDA graph on the card, at the padded
+    (SPEC_Q x max_candidates) pairs of every call."""
     m = matching.mutual_match(desc_c, desc_q, valid_c, valid_q)
     pw, meas, corr_valid = _pair_correspondences(links_c, lvalid_c, links_q,
                                                  lvalid_q, m, calib)
-    rr = ransac.ransac_pnp(pw, meas, corr_valid, calib,
-                           num_hypotheses=num_hypotheses, threshold=threshold,
-                           generator=generator)
+    rr = ransac.ransac_pnp(pw, meas, corr_valid, calib, threshold=threshold,
+                           uniforms=uniforms)
     n_corr = corr_valid.sum(dim=1)
     return {"num_inliers": rr["num_inliers"],
             "frac": rr["num_inliers"] / torch.clamp(n_corr, min=1),
@@ -73,7 +75,9 @@ def _refine_pair(links_i, links_j, inlier_mask, match_tgt, T_init, calib,
                  calib_t: torch.Tensor, max_landmarks: int = 512):
     """2-pose bundle on the inlier correspondences, padded to
     ``max_landmarks``, on ``calib_t``'s device (``calib`` is the same
-    calibration on the host); returns (rel_T, rel_cov) as numpy."""
+    calibration on the host); returns (rel_T, rel_cov) as numpy. The
+    bundle and its covariances are ``ops.ba.solve_windows`` at one
+    window, the window BA's graphed step."""
     idx = np.nonzero(np.asarray(inlier_mask))[0][:max_landmarks]
     L = max_landmarks
     li = np.zeros(2 * L, np.int64)
@@ -97,11 +101,10 @@ def _refine_pair(links_i, links_j, inlier_mask, match_tgt, T_init, calib,
     def t(x):
         return torch.as_tensor(x, device=calib_t.device)[None]
 
-    ci_t, li_t, meas_t = t(ci), t(li), t(meas)
-    poses, points, w2, _ = ba.optimize_bundle_pruned(
-        t(poses0), t(points0), ci_t, li_t, meas_t, t(w), calib_t, iters=15)
-    covs = ba.pose_covariances(poses, points, ci_t, li_t, meas_t, w2, calib_t)
-    return poses[0, 1].cpu().numpy(), covs[0, 1].cpu().numpy()
+    out = ba.solve_windows(t(poses0), t(points0), t(ci), t(li), t(meas),
+                           t(w), torch.as_tensor([1], device=calib_t.device),
+                           calib_t, iters=15)
+    return out[5][0].cpu().numpy(), out[6][0].cpu().numpy()
 
 
 def find_loops(pg: PoseGraph, db: TrackStore, desc,
@@ -175,17 +178,27 @@ def find_loops(pg: PoseGraph, db: TrackStore, desc,
             return
         tm["verify_calls"] += 1
         C = lc.max_candidates
-        f_q = np.repeat([kfs[b[0]] for b in batch], C)
-        f_c = np.asarray([kfs[int(g)] for b in batch for g in b[2]])
+        n_real = len(batch) * C
+        # padded to SPEC_Q queries, as the JAX package pads (its results
+        # are discarded), so that every call has one shape; the padding
+        # draws nothing: RANSAC's uniforms are the real pairs' draw, the
+        # last row repeated
+        padded = batch + [batch[-1]] * (SPEC_Q - len(batch))
+        f_q = np.repeat([kfs[b[0]] for b in padded], C)
+        f_c = np.asarray([kfs[int(g)] for b in padded for g in b[2]])
 
         def run():
+            u = ransac.hypothesis_uniforms(n_real, desc_valid.shape[1],
+                                           cfg.ransac.num_hypotheses, gen,
+                                           device)
+            u = torch.cat([u, u[-1:].expand(len(f_q) - n_real, -1, -1)])
             vr = _verify_candidates(
                 desc[f_q], dev(desc_valid[f_q]), dev(db.links[f_q]),
                 dev(db.link_valid[f_q]), desc[f_c],
                 dev(desc_valid[f_c]), dev(db.links[f_c]),
-                dev(db.link_valid[f_c]), calib_t, cfg.ransac.num_hypotheses,
-                cfg.ransac.threshold_px, generator=gen)
-            return {k: v.cpu().numpy() for k, v in vr.items()}
+                dev(db.link_valid[f_c]), calib_t, u,
+                cfg.ransac.threshold_px)
+            return {k: v[:n_real].cpu().numpy() for k, v in vr.items()}
 
         vr = _timed("verify_s", run)
         for qi, (m_, n_good_, gp_) in enumerate(batch):

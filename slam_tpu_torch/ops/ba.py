@@ -34,12 +34,21 @@ one system), as the port's ``optimize_bundle`` is always batched.
 
 A failed factorization gives a NaN step, which LM rejects (its cost is
 not finite), as the JAX package's default Cholesky does; it never raises.
+
+``optimize_bundle`` and ``solve_windows`` (a window batch's device work
+between its upload and its read-back, the window BA's and the
+loop-closure pair's: the initial cost, ``optimize_bundle_pruned`` and
+the covariances) run from CUDA graphs on the card (``runtime.graphs``),
+where the JAX package jits them. Of ``solve_windows`` all but the
+covariances' inverse is graphed: ``torch.linalg.inv_ex`` cannot be
+captured at BA's sizes and runs outside the graph, by design.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..runtime import graphs
 from . import cuda_kernels, se3, stereo
 
 
@@ -222,6 +231,7 @@ def _linearize(poses, points, cam_idx, lm_idx, meas, w, calib,
     return J_pose, J_lm, r
 
 
+@graphs.graphed(static=("iters", "lam0", "huber_delta"))
 def optimize_bundle(poses, points, cam_idx, lm_idx, meas, w, calib,
                     iters: int = 20, lam0: float = 1e-4,
                     huber_delta: float = 0.0):
@@ -283,21 +293,69 @@ def optimize_bundle_pruned(poses, points, cam_idx, lm_idx, meas, w, calib,
                                    calib)
 
 
-def pose_covariances(poses, points, cam_idx, lm_idx, meas, w, calib):
-    """Marginal 6x6 covariance of every pose (B, P, 6, 6), pose 0 fixed:
-    the diagonal blocks of the inverse undamped Gauss-Newton Schur
-    complement. Row 0 is zero (the gauge)."""
-    B, P, L = poses.shape[0], poses.shape[1], points.shape[1]
+def _covariance_system(poses, points, cam_idx, lm_idx, meas, w, calib):
+    """The undamped Gauss-Newton Schur complement on the poses whose
+    inverse ``pose_covariances`` reads: S + 1e-8 I (B, 6P, 6P), the gauge
+    rows identity."""
+    P, L = poses.shape[1], points.shape[1]
     J_pose, J_lm, r = _linearize(poses, points, cam_idx, lm_idx, meas, w,
                                  calib)
     g_p, g_l, Hpp, Hll, Wc = _build_blocks(J_pose, J_lm, r, cam_idx, lm_idx,
                                            P, L)
     eye3 = torch.eye(3, dtype=Hpp.dtype, device=Hpp.device)
     S, _, _ = _reduced_system(Hpp, _inv3x3(Hll + 1e-6 * eye3), Wc, g_p, g_l)
-    S = S + 1e-8 * torch.eye(P * 6, dtype=S.dtype, device=S.device)
+    return S + 1e-8 * torch.eye(P * 6, dtype=S.dtype, device=S.device)
+
+
+def _marginals(S):
+    """The diagonal 6x6 blocks (B, P, 6, 6) of S^-1, symmetrized, the
+    gauge block zero. ``torch.linalg.inv_ex`` cannot be captured in a CUDA
+    graph at BA's N = 144 (its batched LU takes a library path that
+    synchronises with the host), so this runs outside every graph."""
+    B, P = S.shape[0], S.shape[1] // 6
     cov = torch.linalg.inv_ex(S)[0].reshape(B, P, 6, P, 6)
     d = torch.arange(P, device=S.device)
     out = cov[:, d, :, d, :].permute(1, 0, 2, 3)              # (B, P, 6, 6)
     out = 0.5 * (out + out.transpose(-1, -2))
     mask = _gauge_mask(P, S.dtype, S.device).reshape(P, 6)
     return out * mask[None, :, :, None]
+
+
+def pose_covariances(poses, points, cam_idx, lm_idx, meas, w, calib):
+    """Marginal 6x6 covariance of every pose (B, P, 6, 6), pose 0 fixed:
+    the diagonal blocks of the inverse undamped Gauss-Newton Schur
+    complement. Row 0 is zero (the gauge)."""
+    return _marginals(_covariance_system(poses, points, cam_idx, lm_idx,
+                                         meas, w, calib))
+
+
+@graphs.graphed(static=("iters", "min_depth", "max_depth", "huber_delta"))
+def _bundle_and_system(poses0, points0, cam_idx, lm_idx, meas, w, calib,
+                       iters: int, min_depth: float, max_depth: float,
+                       huber_delta: float):
+    """``solve_windows``' graphed body: the initial cost,
+    ``optimize_bundle_pruned`` and the covariance system at its result.
+    Returns (poses, points, w, cost, cost0, S)."""
+    cost0 = _cost(poses0, points0, cam_idx, lm_idx, meas, w, calib)
+    poses, points, w2, cost = optimize_bundle_pruned(
+        poses0, points0, cam_idx, lm_idx, meas, w, calib, iters=iters,
+        min_depth=min_depth, max_depth=max_depth, huber_delta=huber_delta)
+    S = _covariance_system(poses, points, cam_idx, lm_idx, meas, w2, calib)
+    return poses, points, w2, cost, cost0, S
+
+
+def solve_windows(poses0, points0, cam_idx, lm_idx, meas, w, last, calib,
+                  iters: int = 20, min_depth: float = 0.1,
+                  max_depth: float = 1000.0, huber_delta: float = 0.0):
+    """A window batch from its device inputs to its results: the initial
+    cost, ``optimize_bundle_pruned``, ``pose_covariances`` at the result,
+    and each window's pose row ``last`` (B,) and its covariance. Returns
+    (poses, points, w, cost, cost0, rel_T (B, 4, 4), rel_cov (B, 6, 6)).
+    On the card all of it but the covariance system's inverse and the
+    gathers after it is one CUDA graph (``_bundle_and_system``)."""
+    poses, points, w2, cost, cost0, S = _bundle_and_system(
+        poses0, points0, cam_idx, lm_idx, meas, w, calib, iters=iters,
+        min_depth=min_depth, max_depth=max_depth, huber_delta=huber_delta)
+    covs = _marginals(S)
+    b = torch.arange(poses.shape[0], device=poses.device)
+    return poses, points, w2, cost, cost0, poses[b, last], covs[b, last]

@@ -32,6 +32,29 @@ def stereo_agreement(T_w2c, pw, meas, valid, calib,
     return (err < threshold).all(dim=-1) & (pc[..., 2] > 0.0) & valid
 
 
+def hypothesis_uniforms(B: int, N: int, num_hypotheses: int,
+                        generator: torch.Generator | None = None,
+                        device=None,
+                        draw_rows: tuple[int, int] | None = None):
+    """The (B, H, N) uniforms ``sample_hypotheses`` draws for B sets of N
+    correspondences. With ``draw_rows`` = (offset, total) they are rows
+    offset.. of a draw for ``total`` sets, so that a share of a batch
+    draws what the whole batch would. A caller whose RANSAC runs from a
+    CUDA graph draws them here, outside the graph, and passes them in."""
+    lo, total = (0, B) if draw_rows is None else draw_rows
+    return torch.rand((total, num_hypotheses, N), generator=generator,
+                      device=device)[lo:lo + B]
+
+
+def hypotheses_from_uniforms(valid: torch.Tensor, u: torch.Tensor):
+    """(B, H, 3) index sets drawn without replacement from the valid
+    entries of each row of ``valid`` (B, N) by Gumbel top-k on the
+    uniforms ``u`` (B, H, N)."""
+    g = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
+    logits = torch.where(valid, 0.0, -math.inf)[:, None, :]
+    return torch.topk(logits + g, MIN_SET, dim=-1).indices
+
+
 def sample_hypotheses(valid: torch.Tensor, num_hypotheses: int,
                       generator: torch.Generator | None = None,
                       draw_rows: tuple[int, int] | None = None):
@@ -41,34 +64,33 @@ def sample_hypotheses(valid: torch.Tensor, num_hypotheses: int,
     for ``total`` rows, so that a share of a batch draws what the whole
     batch would."""
     B, N = valid.shape
-    lo, total = (0, B) if draw_rows is None else draw_rows
-    u = torch.rand((total, num_hypotheses, N), generator=generator,
-                   device=valid.device)[lo:lo + B]
-    g = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
-    logits = torch.where(valid, 0.0, -math.inf)[:, None, :]
-    return torch.topk(logits + g, MIN_SET, dim=-1).indices
+    return hypotheses_from_uniforms(valid, hypothesis_uniforms(
+        B, N, num_hypotheses, generator, valid.device, draw_rows))
 
 
 def ransac_pnp(pw, meas, valid, calib, num_hypotheses: int = 256,
                threshold: float = DEFAULT_THRESHOLD, refine_iters: int = 5,
                generator: torch.Generator | None = None,
                hyp_idx: torch.Tensor | None = None,
-               draw_rows: tuple[int, int] | None = None) -> dict:
+               uniforms: torch.Tensor | None = None) -> dict:
     """Robust poses from B padded, masked correspondence sets.
 
     pw (B, N, 3) points in the previous camera, meas (B, N, 3) stereo
     observations (uL, uR, v) in the current one, valid (B, N).
-    ``hyp_idx`` (B, H, 3) replaces the sampled hypotheses; ``draw_rows``
-    (offset, total) samples them as rows offset.. of a draw for ``total``
-    sets (``sample_hypotheses``).
+    ``hyp_idx`` (B, H, 3) replaces the sampled hypotheses; ``uniforms``
+    (B, H, N) are the uniforms drawn beforehand (``hypothesis_uniforms``,
+    which also draws a share of a larger batch's rows), so that no draw
+    runs here.
 
     Returns T_w2c (B, 4, 4), inliers (B, N), num_inliers (B,), ok (B,).
     """
     B, N, _ = pw.shape
     ok_input = valid.sum(dim=1) >= MIN_SET
     if hyp_idx is None:
-        hyp_idx = sample_hypotheses(valid, num_hypotheses, generator,
-                                    draw_rows)
+        if uniforms is None:
+            uniforms = hypothesis_uniforms(B, N, num_hypotheses, generator,
+                                           pw.device)
+        hyp_idx = hypotheses_from_uniforms(valid, uniforms)
     hyp_idx = hyp_idx.to(pw.device).long()
     pc_cur = stereo.backproject(calib, meas)
 
