@@ -10,6 +10,14 @@ selected-inverse path (ops/pg_sparse.py, float64 on ``device``), which
 needs the odometry chain in node order; ``covariance_full``, ``marginal``
 and ``relative_covariance`` stay dense at any size. ``save``/``load`` use
 the JAX package's npz format.
+
+The dense path pads the graph to the JAX package's static buckets: edges
+to a multiple of ``_EDGE_PAD`` (identity Z, zero sqrt-information, masked
+by ``e_valid``), nodes to a multiple of ``_NODE_PAD`` (identity, masked
+by ``n_valid``) and the gate's pairs to a multiple of ``_PAIR_PAD``, and
+slices the results back. So every refresh and re-optimisation of one
+``find_loops`` call (N fixed, one edge more per closure) replays the
+same CUDA graph of each op.
 """
 
 from __future__ import annotations
@@ -22,6 +30,10 @@ import torch
 
 from ..ops import cuda_kernels, pg_sparse
 from ..ops import pose_graph as pg_ops
+
+_EDGE_PAD = 64     # edge capacity grows in blocks of this many
+_NODE_PAD = 64     # node capacity too: one graph per bucket of nodes
+_PAIR_PAD = 8192   # the gate's pair count, N(N-1)/2, padded the same way
 
 # Above this node count optimize / gate / log-dets take the sparse path:
 # the dense (6N)^2 inverse is O(N^3) work and ~0.9 GB of float32
@@ -108,11 +120,50 @@ class PoseGraph:
         return torch.as_tensor(np.asarray(x), dtype=dtype,
                                device=cuda_kernels.resolve_device(self.device))
 
-    def _device_args(self):
-        """The dense path's inputs: nodes and every edge."""
+    def _padded_edges(self):
+        """Edges padded to the _EDGE_PAD bucket: (e_i, e_j, Z, sqrt_info,
+        e_valid), the padding joining node 0 to itself with identity Z and
+        zero sqrt-information."""
+        E = self.num_edges
+        pad = -E % _EDGE_PAD
+        e_i = np.concatenate([self.e_i, np.zeros(pad, np.int32)])
+        e_j = np.concatenate([self.e_j, np.zeros(pad, np.int32)])
+        Z = np.concatenate(
+            [self.Z, np.tile(np.eye(4, dtype=np.float32), (pad, 1, 1))])
+        si = np.concatenate([self.sqrt_info, np.zeros((pad, 6, 6),
+                                                      np.float32)])
+        valid = np.concatenate([np.ones(E, bool), np.zeros(pad, bool)])
+        return e_i, e_j, Z, si, valid
+
+    def _padded_nodes(self):
+        """Nodes padded to the _NODE_PAD bucket with identities, and
+        n_valid."""
+        N = self.num_nodes
+        pad = -N % _NODE_PAD
+        nodes = np.concatenate(
+            [self.nodes, np.tile(np.eye(4, dtype=np.float32), (pad, 1, 1))])
+        return nodes, np.concatenate([np.ones(N, bool), np.zeros(pad, bool)])
+
+    @staticmethod
+    def _padded_pairs(pair_i, pair_j):
+        """The gate's pairs padded to the _PAIR_PAD bucket with the pair
+        (0, 0): (pair_i, pair_j), int64."""
+        P = len(pair_i)
+        cap = max(_PAIR_PAD, P + -P % _PAIR_PAD)
+        pi = np.zeros(cap, np.int64)
+        pj = np.zeros(cap, np.int64)
+        pi[:P] = pair_i
+        pj[:P] = pair_j
+        return pi, pj
+
+    def _dense_args(self):
+        """The dense path's inputs at the padded shapes: (nodes, e_i, e_j,
+        Z, sqrt_info, e_valid) and n_valid."""
         t = self._tensor
-        return (t(self.nodes), t(self.e_i, torch.int64),
-                t(self.e_j, torch.int64), t(self.Z), t(self.sqrt_info))
+        e_i, e_j, Z, si, e_valid = self._padded_edges()
+        nodes, n_valid = self._padded_nodes()
+        return ((t(nodes), t(e_i, torch.int64), t(e_j, torch.int64), t(Z),
+                 t(si), t(e_valid)), t(n_valid))
 
     def _sparse_arrays(self):
         """The sparse path's inputs: the graph split into the odometry
@@ -155,13 +206,18 @@ class PoseGraph:
             nodes, cost = pg_sparse.optimize_sparse(*self._sparse_arrays(),
                                                     iters=iters)
         else:
-            nodes, cost = pg_ops.optimize(*self._device_args(), iters=iters)
-        self.nodes = nodes.cpu().numpy()
+            args, n_valid = self._dense_args()
+            nodes, cost = pg_ops.optimize(*args, iters=iters,
+                                          n_valid=n_valid)
+        self.nodes = nodes[:self.num_nodes].cpu().numpy()
         return float(cost)
 
     def covariance_full(self) -> np.ndarray:
         """(N, 6, N, 6) posterior covariance."""
-        return pg_ops.gn_hessian_inverse(*self._device_args()).cpu().numpy()
+        args, n_valid = self._dense_args()
+        N = self.num_nodes
+        C = pg_ops.gn_hessian_inverse(*args, n_valid=n_valid)
+        return C[:N, :, :N, :].cpu().numpy()
 
     def marginal(self, i: int, C: np.ndarray | None = None) -> np.ndarray:
         """Marginal 6x6 covariance of node ``i`` (from ``C``, the
@@ -184,21 +240,28 @@ class PoseGraph:
             loc, rot = pg_sparse.marginal_logdets_sparse(
                 *self._sparse_arrays())
         else:
-            loc, rot = pg_ops.marginal_logdets(*self._device_args())
-        return loc.cpu().numpy(), rot.cpu().numpy()
+            args, n_valid = self._dense_args()
+            loc, rot = pg_ops.marginal_logdets(*args, n_valid=n_valid)
+        N = self.num_nodes
+        return loc[:N].cpu().numpy(), rot[:N].cpu().numpy()
 
     def gate_distances(self, pair_i: np.ndarray,
                        pair_j: np.ndarray) -> np.ndarray:
         """Mahalanobis gating distances (P,) of candidate pairs, on the
         device (posterior covariance, dense or selected blocks, and batched
-        quadratic forms): only the distances come back."""
-        pi = self._tensor(pair_i, torch.int64)
-        pj = self._tensor(pair_j, torch.int64)
+        quadratic forms): only the distances come back. The dense path
+        pads the pairs to the _PAIR_PAD bucket."""
         if self._use_sparse():
-            d = pg_sparse.gate_matrix_sparse(*self._sparse_arrays(), pi, pj)
-        else:
-            d = pg_ops.gate_matrix(*self._device_args(), pi, pj)
-        return d.cpu().numpy()
+            t = self._tensor
+            d = pg_sparse.gate_matrix_sparse(*self._sparse_arrays(),
+                                             t(pair_i, torch.int64),
+                                             t(pair_j, torch.int64))
+            return d.cpu().numpy()
+        pi, pj = self._padded_pairs(pair_i, pair_j)
+        args, n_valid = self._dense_args()
+        d = pg_ops.gate_matrix(*args, self._tensor(pi), self._tensor(pj),
+                               n_valid=n_valid)
+        return d[:len(pair_i)].cpu().numpy()
 
     def save(self, path: str | Path) -> None:
         np.savez_compressed(

@@ -12,12 +12,15 @@ as the leading dimension where the JAX package vmaps. One window:
   w        (M,)      observation weights (0 = padding / pruned)
 
 Each (pose, landmark) pair is observed at most once. Pose 0 is frozen
-(gauge). The Hessian blocks are built by ``index_add_`` (the JAX
-package's "scatter" engine; its one-hot and bf16 engines are TPU
-workarounds and are not ported, and neither is ``default_engine``, which
-chooses among them by JAX backend). ``index_add_`` on CUDA sums in a
-varying order, so results agree with the JAX package to float32
-rounding, not bit for bit.
+(gauge). The Hessian blocks are built by a scatter (the JAX package's
+"scatter" engine; its one-hot and bf16 engines are TPU workarounds and
+are not ported, and neither is ``default_engine``, which chooses among
+them by JAX backend): each observation's terms to its own (landmark,
+pose) slot, then sums over the slots in a fixed order, so that a run on
+the card gives the same blocks bit for bit every time (``index_add_``'s
+atomics straight into the blocks sum in a varying order, and the
+float32 LM's accept path then parts between runs of the same inputs).
+Results agree with the JAX package to float32 rounding.
 
 Every reduced pose system is solved by kernel B6
 (``cuda_kernels.cholesky_solve``: a batched Cholesky factorization and
@@ -37,11 +40,13 @@ not finite), as the JAX package's default Cholesky does; it never raises.
 
 ``optimize_bundle`` and ``solve_windows`` (a window batch's device work
 between its upload and its read-back, the window BA's and the
-loop-closure pair's: the initial cost, ``optimize_bundle_pruned`` and
-the covariances) run from CUDA graphs on the card (``runtime.graphs``),
-where the JAX package jits them. Of ``solve_windows`` all but the
-covariances' inverse is graphed: ``torch.linalg.inv_ex`` cannot be
-captured at BA's sizes and runs outside the graph, by design.
+loop-closure pair's: the initial cost, ``optimize_bundle_pruned``, the
+covariances and the gathers of each window's last pose) run from CUDA
+graphs on the card (``runtime.graphs``), where the JAX package jits them.
+The covariances' inverse is an LU inverse per window (cuSOLVER on the
+card), which a graph captures: ``torch.linalg.inv_ex``'s batched LU at
+BA's (B, 144, 144) synchronises with the host and cannot be captured
+(``scripts/probe_linalg_capture.py``).
 """
 
 from __future__ import annotations
@@ -86,27 +91,44 @@ def _jacobians_tx(T, X, w, calib, Xc):
     return J_pose, J_lm
 
 
+def _tree_sum(x, dim: int):
+    """Sum over ``dim`` by pairwise halving (x[i] + x[i + n/2], an odd
+    last entry carried): every output is the same tree of additions
+    whatever the other dimensions' sizes, so a window's sums do not depend
+    on the batch it is solved in, as ``torch.sum``'s order may."""
+    x = x.movedim(dim, 0)
+    while x.shape[0] > 1:
+        n, h = x.shape[0], x.shape[0] // 2
+        y = x[:h] + x[h:2 * h]
+        x = torch.cat([y, x[2 * h:]]) if n % 2 else y
+    return x[0]
+
+
 def _build_blocks(J_pose, J_lm, r, cam_idx, lm_idx, P, L):
-    """Gradient / Hessian blocks by index_add_: g_p (B, P, 6),
-    g_l (B, L, 3), Hpp (B, P, 6, 6), Hll (B, L, 3, 3) and the dense cross
-    blocks Wc (B, L, P, 6, 3)."""
+    """Gradient / Hessian blocks: g_p (B, P, 6), g_l (B, L, 3),
+    Hpp (B, P, 6, 6), Hll (B, L, 3, 3) and the dense cross blocks
+    Wc (B, L, P, 6, 3). Each observation's terms go to its own
+    (landmark, pose) slot of a dense (B, L, P, 72) array by
+    ``index_add_``; a pair is observed at most once, so a slot takes at
+    most one nonzero term (padded lanes add zeros) and the atomics'
+    order cannot change it. The pose blocks are then sums over the
+    landmarks, the landmark blocks sums over the poses (``_tree_sum``):
+    the same window gives the same blocks bit for bit, in any batch."""
     B, M = cam_idx.shape
     dev, dt = J_pose.device, J_pose.dtype
     off = torch.arange(B, device=dev)[:, None]
-    ci = (off * P + cam_idx).reshape(-1)
-    li = (off * L + lm_idx).reshape(-1)
     pair = ((off * L + lm_idx) * P + cam_idx).reshape(-1)
-
-    def add(n, idx, vals):
-        out = torch.zeros((n,) + vals.shape[2:], dtype=dt, device=dev)
-        return out.index_add_(0, idx, vals.reshape((-1,) + vals.shape[2:]))
-
-    g_p = add(B * P, ci, _jtr3(J_pose, r)).reshape(B, P, 6)
-    g_l = add(B * L, li, _jtr3(J_lm, r)).reshape(B, L, 3)
-    Hpp = add(B * P, ci, _outer3(J_pose, J_pose)).reshape(B, P, 6, 6)
-    Hll = add(B * L, li, _outer3(J_lm, J_lm)).reshape(B, L, 3, 3)
-    Wc = add(B * L * P, pair, _outer3(J_pose, J_lm)).reshape(B, L, P, 6, 3)
-    return g_p, g_l, Hpp, Hll, Wc
+    terms = torch.cat([_jtr3(J_pose, r), _outer3(J_pose, J_pose).flatten(-2),
+                       _jtr3(J_lm, r), _outer3(J_lm, J_lm).flatten(-2),
+                       _outer3(J_pose, J_lm).flatten(-2)], dim=-1)
+    slots = torch.zeros((B * L * P, terms.shape[-1]), dtype=dt, device=dev)
+    slots = slots.index_add_(0, pair, terms.reshape(B * M, -1)).reshape(
+        B, L, P, -1)
+    pose = _tree_sum(slots[..., :42], 1)                       # (B, P, 42)
+    lm = _tree_sum(slots[..., 42:54], 2)                       # (B, L, 12)
+    return (pose[..., :6], lm[..., :3], pose[..., 6:].reshape(B, P, 6, 6),
+            lm[..., 3:].reshape(B, L, 3, 3),
+            slots[..., 54:].reshape(B, L, P, 6, 3))
 
 
 def _inv3x3(A):
@@ -309,13 +331,22 @@ def _covariance_system(poses, points, cam_idx, lm_idx, meas, w, calib):
 
 def _marginals(S):
     """The diagonal 6x6 blocks (B, P, 6, 6) of S^-1, symmetrized, the
-    gauge block zero. ``torch.linalg.inv_ex`` cannot be captured in a CUDA
-    graph at BA's N = 144 (its batched LU takes a library path that
-    synchronises with the host), so this runs outside every graph."""
+    gauge block zero. S^-1 is an LU inverse with partial pivoting, as the
+    JAX package's ``jnp.linalg.inv``, one window at a time: the batched LU
+    of ``torch.linalg.inv_ex`` at BA's (B, 144, 144) synchronises with the
+    host and cannot be captured in a CUDA graph, a single matrix's can. S
+    need not be positive definite in float32 (a weakly held landmark's
+    Schur term cancels). A window whose LU meets a zero pivot gets NaN
+    blocks, on the device."""
     B, P = S.shape[0], S.shape[1] // 6
-    cov = torch.linalg.inv_ex(S)[0].reshape(B, P, 6, P, 6)
     d = torch.arange(P, device=S.device)
-    out = cov[:, d, :, d, :].permute(1, 0, 2, 3)              # (B, P, 6, 6)
+    blocks = []
+    for b in range(B):
+        inv, info = torch.linalg.inv_ex(S[b])
+        blk = inv.reshape(P, 6, P, 6)[d, :, d, :]                 # (P, 6, 6)
+        blocks.append(torch.where(info > 0, torch.full_like(blk, torch.nan),
+                                  blk))
+    out = torch.stack(blocks)
     out = 0.5 * (out + out.transpose(-1, -2))
     mask = _gauge_mask(P, S.dtype, S.device).reshape(P, 6)
     return out * mask[None, :, :, None]
@@ -330,20 +361,6 @@ def pose_covariances(poses, points, cam_idx, lm_idx, meas, w, calib):
 
 
 @graphs.graphed(static=("iters", "min_depth", "max_depth", "huber_delta"))
-def _bundle_and_system(poses0, points0, cam_idx, lm_idx, meas, w, calib,
-                       iters: int, min_depth: float, max_depth: float,
-                       huber_delta: float):
-    """``solve_windows``' graphed body: the initial cost,
-    ``optimize_bundle_pruned`` and the covariance system at its result.
-    Returns (poses, points, w, cost, cost0, S)."""
-    cost0 = _cost(poses0, points0, cam_idx, lm_idx, meas, w, calib)
-    poses, points, w2, cost = optimize_bundle_pruned(
-        poses0, points0, cam_idx, lm_idx, meas, w, calib, iters=iters,
-        min_depth=min_depth, max_depth=max_depth, huber_delta=huber_delta)
-    S = _covariance_system(poses, points, cam_idx, lm_idx, meas, w2, calib)
-    return poses, points, w2, cost, cost0, S
-
-
 def solve_windows(poses0, points0, cam_idx, lm_idx, meas, w, last, calib,
                   iters: int = 20, min_depth: float = 0.1,
                   max_depth: float = 1000.0, huber_delta: float = 0.0):
@@ -351,11 +368,11 @@ def solve_windows(poses0, points0, cam_idx, lm_idx, meas, w, last, calib,
     cost, ``optimize_bundle_pruned``, ``pose_covariances`` at the result,
     and each window's pose row ``last`` (B,) and its covariance. Returns
     (poses, points, w, cost, cost0, rel_T (B, 4, 4), rel_cov (B, 6, 6)).
-    On the card all of it but the covariance system's inverse and the
-    gathers after it is one CUDA graph (``_bundle_and_system``)."""
-    poses, points, w2, cost, cost0, S = _bundle_and_system(
+    One CUDA graph on the card."""
+    cost0 = _cost(poses0, points0, cam_idx, lm_idx, meas, w, calib)
+    poses, points, w2, cost = optimize_bundle_pruned(
         poses0, points0, cam_idx, lm_idx, meas, w, calib, iters=iters,
         min_depth=min_depth, max_depth=max_depth, huber_delta=huber_delta)
-    covs = _marginals(S)
+    covs = pose_covariances(poses, points, cam_idx, lm_idx, meas, w2, calib)
     b = torch.arange(poses.shape[0], device=poses.device)
     return poses, points, w2, cost, cost0, poses[b, last], covs[b, last]

@@ -9,6 +9,19 @@ assembled dense, (6N, 6N), and Jacobi-preconditioned before every solve
 hundred nodes). Edge Jacobians are forward-mode derivatives of the
 residual in the right perturbations of both nodes, as ``jax.jacfwd``
 gives them in the JAX package.
+
+The models pad the graph to static buckets (``models/pose_graph.py``), as
+the JAX package does: ``e_valid`` (E,) bool weighs the edges and
+``n_valid`` (N,) bool the nodes, with the JAX package's semantics. An
+invalid edge has zero residual and Jacobians; an invalid node, like the
+gauge node 0, becomes an identity row and column of H with a zero
+gradient, so its step is zero and its covariance block reads 0. Both
+default to every entry valid. ``optimize``, ``gn_hessian_inverse``,
+``gate_matrix`` and ``marginal_logdets`` run from CUDA graphs on the card
+(``runtime.graphs``), one per padded shape, where the JAX package jits
+them: all ``iters`` LM iterations, the posterior's dense inverse and the
+gate's quadratic forms in one replay each, the accept/reject logic on
+the device.
 """
 
 from __future__ import annotations
@@ -16,6 +29,7 @@ from __future__ import annotations
 import torch
 import torch.autograd.forward_ad as fwAD
 
+from ..runtime import graphs
 from . import se3
 
 
@@ -47,28 +61,54 @@ def _edge_res_jac(Xi, Xj, Z_inv, sqrt_info):
     return r[:E], J[..., :6], J[..., 6:]
 
 
-def _node_mask(N, dtype, device):
-    """(6N,) mask: 0 for the gauge node 0, 1 elsewhere."""
-    m = torch.ones(6 * N, dtype=dtype, device=device)
-    m[:6] = 0.0
-    return m
+def _node_mask(N, dtype, device, n_valid=None):
+    """(6N,) mask: 0 for the gauge node 0 and for padded nodes (``n_valid``
+    False), 1 elsewhere."""
+    m = (torch.ones(N, dtype=dtype, device=device) if n_valid is None
+         else n_valid.to(dtype))
+    m = torch.cat([torch.zeros_like(m[:1]), m[1:]])
+    return m.repeat_interleave(6)
+
+
+def _edge_weights(e_valid, e_i, dtype):
+    """(E,) edge weights: 1 for a valid edge, 0 for padding."""
+    if e_valid is None:
+        return torch.ones(e_i.shape, dtype=dtype, device=e_i.device)
+    return e_valid.to(dtype)
+
+
+def _weighted_res_jac(nodes, e_i, e_j, Z_inv, sqrt_info, wE):
+    """Residuals and Jacobians of the edges, zero on padded edges."""
+    r, Ji, Jj = _edge_res_jac(nodes[e_i], nodes[e_j], Z_inv, sqrt_info)
+    return (r * wE[:, None], Ji * wE[:, None, None],
+            Jj * wE[:, None, None])
 
 
 def _assemble(N, e_i, e_j, Ji, Jj, r=None):
-    """Dense (6N, 6N) Gauss-Newton matrix (and gradient (6N,) with r)."""
+    """Dense (6N, 6N) Gauss-Newton matrix (and gradient (6N,) with r),
+    the same bit for bit for the same valid edges on every run and at
+    every padding: a node's diagonal block and gradient sum its few edge
+    terms in float64, where the sum is exact (up to the terms' exponent
+    span), so the order ``index_add_``'s atomics take cannot change the
+    float32 result; an edge's off-diagonal blocks go to slots of their own
+    (padded edges add zeros there)."""
     dt, dev = Ji.dtype, Ji.device
-    blocks = torch.zeros((N * N, 6, 6), dtype=dt, device=dev)
     JiT, JjT = Ji.transpose(1, 2), Jj.transpose(1, 2)
-    for a, b, Ja, Jb in ((e_i, e_i, JiT, Ji), (e_j, e_j, JjT, Jj),
-                         (e_i, e_j, JiT, Jj), (e_j, e_i, JjT, Ji)):
-        blocks.index_add_(0, a * N + b, Ja @ Jb)
+    diag = torch.zeros((N, 6, 6), dtype=torch.float64, device=dev)
+    diag.index_add_(0, e_i, (JiT @ Ji).double())
+    diag.index_add_(0, e_j, (JjT @ Jj).double())
+    blocks = torch.zeros((N * N, 6, 6), dtype=dt, device=dev)
+    blocks.index_add_(0, e_i * N + e_j, JiT @ Jj)
+    blocks.index_add_(0, e_j * N + e_i, JjT @ Ji)
+    d = torch.arange(N, device=dev)
+    blocks[d * N + d] = diag.to(dt)
     H = blocks.reshape(N, N, 6, 6).permute(0, 2, 1, 3).reshape(6 * N, 6 * N)
     if r is None:
         return H
-    g = torch.zeros((N, 6), dtype=dt, device=dev)
-    g.index_add_(0, e_i, (JiT @ r[..., None])[..., 0])
-    g.index_add_(0, e_j, (JjT @ r[..., None])[..., 0])
-    return H, g.reshape(6 * N)
+    g = torch.zeros((N, 6), dtype=torch.float64, device=dev)
+    g.index_add_(0, e_i, (JiT @ r[..., None])[..., 0].double())
+    g.index_add_(0, e_j, (JjT @ r[..., None])[..., 0].double())
+    return H, g.to(dt).reshape(6 * N)
 
 
 def _precondition(H, mask):
@@ -77,26 +117,28 @@ def _precondition(H, mask):
     return H * dscale[:, None] * dscale[None, :], dscale
 
 
-def optimize(nodes, e_i, e_j, Z, sqrt_info, iters: int = 15,
-             lam0: float = 1e-6):
+@graphs.graphed(static=("iters", "lam0"))
+def optimize(nodes, e_i, e_j, Z, sqrt_info, e_valid=None, iters: int = 15,
+             lam0: float = 1e-6, n_valid=None):
     """LM over the pose graph, node 0 frozen. nodes (N, 4, 4), edges
-    e_i / e_j (E,), Z (E, 4, 4), sqrt_info (E, 6, 6). A step is accepted
-    only if it cuts the cost by more than 0.1%: below that, float32 cost
-    noise would read as improvement and random-walk the nodes. Returns
-    (nodes, cost)."""
+    e_i / e_j (E,), Z (E, 4, 4), sqrt_info (E, 6, 6), the padding masks
+    e_valid (E,) and n_valid (N,). A step is accepted only if it cuts the
+    cost by more than 0.1%: below that, float32 cost noise would read as
+    improvement and random-walk the nodes. Returns (nodes, cost)."""
     N = nodes.shape[0]
     Z_inv = se3.inverse(Z)
-    mask = _node_mask(N, nodes.dtype, nodes.device)
+    wE = _edge_weights(e_valid, e_i, nodes.dtype)
+    mask = _node_mask(N, nodes.dtype, nodes.device, n_valid)
     eye = torch.eye(6 * N, dtype=nodes.dtype, device=nodes.device)
 
     def cost_of(X):
-        r = edge_residual(X[e_i], X[e_j], Z_inv, sqrt_info)
+        r = edge_residual(X[e_i], X[e_j], Z_inv, sqrt_info) * wE[:, None]
         return 0.5 * torch.sum(r * r)
 
     cost = cost_of(nodes)
     lam = torch.full((), lam0, dtype=nodes.dtype, device=nodes.device)
     for _ in range(iters):
-        r, Ji, Jj = _edge_res_jac(nodes[e_i], nodes[e_j], Z_inv, sqrt_info)
+        r, Ji, Jj = _weighted_res_jac(nodes, e_i, e_j, Z_inv, sqrt_info, wE)
         H, g = _assemble(N, e_i, e_j, Ji, Jj, r)
         Hs, dscale = _precondition(H, mask)
         x = torch.linalg.solve_ex(Hs + lam * eye, (dscale * g * mask)[:, None]
@@ -111,21 +153,30 @@ def optimize(nodes, e_i, e_j, Z, sqrt_info, iters: int = 15,
     return nodes, cost
 
 
-def gn_hessian_inverse(nodes, e_i, e_j, Z, sqrt_info):
-    """Full posterior covariance (N, 6, N, 6): the Jacobi-preconditioned
-    inverse of the Gauss-Newton Hessian, node 0 gauge-fixed (its block
-    zeroed)."""
+def _covariance_full(nodes, e_i, e_j, Z, sqrt_info, e_valid, n_valid):
+    """The body :func:`gn_hessian_inverse`, :func:`gate_matrix` and
+    :func:`marginal_logdets` share: the covariance (N, 6, N, 6)."""
     N = nodes.shape[0]
-    r, Ji, Jj = _edge_res_jac(nodes[e_i], nodes[e_j], se3.inverse(Z),
-                              sqrt_info)
+    wE = _edge_weights(e_valid, e_i, nodes.dtype)
+    _, Ji, Jj = _weighted_res_jac(nodes, e_i, e_j, se3.inverse(Z), sqrt_info,
+                                  wE)
     H = _assemble(N, e_i, e_j, Ji, Jj)
-    mask = _node_mask(N, nodes.dtype, nodes.device)
+    mask = _node_mask(N, nodes.dtype, nodes.device, n_valid)
     Hs, dscale = _precondition(H, mask)
     Hs = Hs + 1e-6 * torch.eye(6 * N, dtype=H.dtype, device=H.device)
     C = torch.linalg.inv_ex(Hs)[0] * dscale[:, None] * dscale[None, :]
     C = 0.5 * (C + C.T)
     C = C * mask[:, None] * mask[None, :]
     return C.reshape(N, 6, N, 6)
+
+
+@graphs.graphed
+def gn_hessian_inverse(nodes, e_i, e_j, Z, sqrt_info, e_valid=None,
+                       n_valid=None):
+    """Full posterior covariance (N, 6, N, 6): the Jacobi-preconditioned
+    inverse of the Gauss-Newton Hessian, node 0 gauge-fixed and padded
+    nodes masked (their blocks zero)."""
+    return _covariance_full(nodes, e_i, e_j, Z, sqrt_info, e_valid, n_valid)
 
 
 def relative_covariance(C, i, j):
@@ -167,17 +218,22 @@ def mahalanobis_distance(C, nodes, i: int, j: int):
     return mahalanobis_batched(C, nodes, idx[:1], idx[1:])[0]
 
 
-def gate_matrix(nodes, e_i, e_j, Z, sqrt_info, pair_i, pair_j):
+@graphs.graphed
+def gate_matrix(nodes, e_i, e_j, Z, sqrt_info, e_valid, pair_i, pair_j,
+                n_valid=None):
     """Posterior refresh + Mahalanobis sweep over candidate pairs (P,),
-    without the covariance leaving the device."""
-    C = gn_hessian_inverse(nodes, e_i, e_j, Z, sqrt_info)
+    without the covariance leaving the device. The JAX package's argument
+    order: ``e_valid`` (None: every edge valid) before the pairs."""
+    C = _covariance_full(nodes, e_i, e_j, Z, sqrt_info, e_valid, n_valid)
     return mahalanobis_batched(C, nodes, pair_i, pair_j)
 
 
-def marginal_logdets(nodes, e_i, e_j, Z, sqrt_info):
+@graphs.graphed
+def marginal_logdets(nodes, e_i, e_j, Z, sqrt_info, e_valid=None,
+                     n_valid=None):
     """Per-node natural-log determinants of the 3x3 location and rotation
     marginal covariance blocks, (N,) each."""
-    C = gn_hessian_inverse(nodes, e_i, e_j, Z, sqrt_info)
+    C = _covariance_full(nodes, e_i, e_j, Z, sqrt_info, e_valid, n_valid)
     N = C.shape[0]
     d = torch.arange(N, device=C.device)
     blocks = C[d, :, d, :]

@@ -70,6 +70,8 @@ class PipelineResult:
     closures: list
     timings: dict = field(default_factory=dict)
     calib: np.ndarray | None = None
+    # find_loops' split of the loop-closure stage (its ``timings``)
+    loop_timings: dict = field(default_factory=dict)
 
     @property
     def T_frontend(self) -> np.ndarray:
@@ -225,6 +227,7 @@ def run_pipeline(images_left, images_right, calib,
                lambda o, p: o.save(p))
     pg_pre = pg.copy()
     closures = []
+    loop_timings = {}
     if run_loop_closure:
         lc_file = cache / "pose_graph_lc.npz" if cache is not None else None
         cl_file = cache / "closures.npz" if cache is not None else None
@@ -238,7 +241,7 @@ def run_pipeline(images_left, images_right, calib,
                 f"({timings['loop_closure']:.2f}s)")
         else:
             closures = timed("loop_closure", lambda: lc_mod.find_loops(
-                pg, db, fe.desc, fe.valid, calib, cfg))
+                pg, db, fe.desc, fe.valid, calib, cfg, loop_timings))
             if cache is not None:
                 pg.save(lc_file)
                 lc_mod.save_closures(closures, cl_file)
@@ -247,7 +250,8 @@ def run_pipeline(images_left, images_right, calib,
     return PipelineResult(frontend=fe, db=db, bundles=bundles,
                           pose_graph=pg, pose_graph_pre_lc=pg_pre,
                           closures=closures, timings=timings,
-                          calib=np.asarray(calib, np.float32))
+                          calib=np.asarray(calib, np.float32),
+                          loop_timings=loop_timings)
 
 
 def evaluate(result: PipelineResult, T_gt: np.ndarray) -> dict:

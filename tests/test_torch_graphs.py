@@ -28,7 +28,9 @@ import torch
 from slam_tpu_torch.config import (FeatureConfig, RansacConfig, SlamConfig,
                                    RuntimeConfig)
 from slam_tpu_torch.models import bundle, frontend, loop_closure
+from slam_tpu_torch.models.pose_graph import PoseGraph
 from slam_tpu_torch.ops import ba, cuda_kernels, ransac, se3, stereo
+from slam_tpu_torch.ops import pose_graph as pg_ops
 from slam_tpu_torch.runtime import graphs
 
 torch.set_num_threads(2)
@@ -420,9 +422,44 @@ def verify_inputs(P=8, K=64, D=128, H=16, seed=0):
             torch.from_numpy(CALIB), torch.rand((P, H, K), generator=g), 2.0)
 
 
-GRAPHED = ("ops.ba.optimize_bundle", "ops.ba._bundle_and_system",
+def pose_graph(N=6, loops=((0, 4),), seed=0):
+    """A drifting chain of N keyframes with loop edges, as a PoseGraph on
+    the CPU (its dense ops take it padded to the 64 buckets)."""
+    rng = np.random.default_rng(seed)
+    xi = np.zeros((N, 6), np.float32)
+    xi[:, 3] = np.arange(N) * 0.8
+    xi[:, :3] = rng.normal(0, 0.02, (N, 3))
+    T = se3.se3_exp(torch.from_numpy(xi))
+    pairs = [(k, k + 1) for k in range(N - 1)] + list(loops)
+    e_i, e_j = (torch.tensor(list(x)) for x in zip(*pairs))
+    Z = se3.retract(T[e_j] @ se3.inverse(T[e_i]), torch.from_numpy(
+        rng.normal(0, 0.01, (len(pairs), 6)).astype(np.float32)))
+    nodes = T.clone()
+    for k in range(N - 1):
+        nodes[k + 1] = Z[k] @ nodes[k]
+    si = np.tile(np.diag([100.0] * 3 + [20.0] * 3).astype(np.float32),
+                 (len(pairs), 1, 1))
+    return PoseGraph(nodes=nodes.numpy(), keyframes=list(range(N)),
+                     e_i=e_i.numpy().astype(np.int32),
+                     e_j=e_j.numpy().astype(np.int32), Z=Z.numpy(),
+                     sqrt_info=si,
+                     is_loop=np.arange(len(pairs)) >= N - 1, device="cpu")
+
+
+def pose_graph_args(g):
+    """(padded args, n_valid, every j < i pair padded to its bucket):
+    what PoseGraph's dense methods hand the ops."""
+    args, n_valid = g._dense_args()
+    ii, jj = np.tril_indices(g.num_nodes, k=-1)
+    pi, pj = g._padded_pairs(jj, ii)
+    return tuple(args), n_valid, (torch.from_numpy(pi), torch.from_numpy(pj))
+
+
+GRAPHED = ("ops.ba.optimize_bundle", "ops.ba.solve_windows",
            "models.frontend._chunk", "models.frontend.recompute_descriptors",
-           "models.loop_closure._verify_candidates")
+           "models.loop_closure._verify_candidates",
+           "ops.pose_graph.optimize", "ops.pose_graph.gn_hessian_inverse",
+           "ops.pose_graph.gate_matrix", "ops.pose_graph.marginal_logdets")
 # and a call under a key of its own: the frontend's first chunk (no carry)
 CASES = GRAPHED + ("models.frontend._chunk, first chunk",)
 
@@ -446,14 +483,19 @@ def graphed_calls():
     calib = torch.from_numpy(CALIB)
     u = torch.rand((4, CFG.ransac.num_hypotheses, CFG.features.max_kp),
                    generator=torch.Generator().manual_seed(3))
+    pga, n_valid, pairs = pose_graph_args(pose_graph())
+    nv = {"n_valid": n_valid}
     calls = (
         (ba.optimize_bundle, win[:6] + win[7:], {"iters": 3}),
-        (ba._bundle_and_system, win[:6] + win[7:],
-         {"iters": 3, "min_depth": 0.1, "max_depth": 1000.0,
-          "huber_delta": 0.0}),
+        (ba.solve_windows, win, {"iters": 3, "min_depth": 0.1,
+                                 "max_depth": 1000.0, "huber_delta": 0.0}),
         (frontend._chunk, (left, right, chunk_carry(), calib, u, CFG), {}),
         (frontend.recompute_descriptors, (left, right, CFG), {}),
         (loop_closure._verify_candidates, verify_inputs(), {}),
+        (pg_ops.optimize, pga, {"iters": 3, "lam0": 1e-6, **nv}),
+        (pg_ops.gn_hessian_inverse, pga, nv),
+        (pg_ops.gate_matrix, pga + pairs, nv),
+        (pg_ops.marginal_logdets, pga, nv),
         (frontend._chunk, (left, right, None, calib, u, CFG), {}),
     )
     return dict(zip(CASES, calls))
@@ -513,6 +555,38 @@ def test_window_step_is_solve_windows():
     b = torch.arange(3)
     assert_same(got, (poses, points, w2, cost, cost0, poses[b, 3],
                       covs[b, 3]))
+
+
+def test_marginals_against_float64_inverse():
+    """_marginals (an LU inverse per window, as the JAX package's
+    jnp.linalg.inv) gives the diagonal blocks of a float64 inverse of S
+    within 1e-5 of each block's norm, the gauge block zero, also where S
+    is not positive definite (a weakly held landmark's Schur term
+    cancels); a window whose S is singular gets NaN blocks and leaves the
+    others as they were."""
+    rng = np.random.default_rng(3)
+    B, P = 3, 4
+    A = rng.normal(size=(B, 6 * P, 6 * P))
+    S = A @ A.transpose(0, 2, 1) + 6 * P * np.eye(6 * P)
+    S[2] -= 30.0 * np.eye(6 * P)                     # indefinite
+    S[:, :6, :] = S[:, :, :6] = 0.0
+    S[:, :6, :6] = np.eye(6)
+    S = torch.tensor(S, dtype=torch.float32)
+    assert torch.linalg.eigvalsh(S[2].double()).min() < 0
+    got = ba._marginals(S)
+    inv = torch.linalg.inv(S.double()).reshape(B, P, 6, P, 6)
+    d = torch.arange(P)
+    want = inv[:, d, :, d, :].permute(1, 0, 2, 3)
+    want = 0.5 * (want + want.transpose(-1, -2))
+    want[:, 0] = 0.0
+    err = (got.double() - want).flatten(2).norm(dim=2)
+    assert (err <= 1e-5 * want.flatten(2).norm(dim=2) + 1e-12).all()
+    bad = S.clone()
+    bad[1, 10, :] = bad[1, :, 10] = 0.0
+    got_bad = ba._marginals(bad)
+    assert torch.isnan(got_bad[1]).all()
+    torch.testing.assert_close(got_bad[[0, 2]], got[[0, 2]], rtol=0.0,
+                               atol=0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -663,6 +737,9 @@ def test_no_captured_body_syncs_or_copies_to_the_host():
     assert cuda_kernels.cholesky_solve in seen
     assert cuda_kernels.mutual_nearest in seen
     assert cuda_kernels.detect_maps in seen
+    # the covariances' inverse and the pose graph's bodies are walked too
+    assert ba._marginals in seen and pg_ops._covariance_full in seen
+    assert pg_ops.mahalanobis_batched in seen
     assert not bad, bad
 
 
@@ -703,8 +780,8 @@ def to(x, device):
     return x
 
 
-# two eager runs of a window batch differ by index_add_'s atomic order
-# (chip_smoke.py's SLICE_TOL: 2e-4 per pose entry, 1e-4 relative cost)
+# a window batch graphed against eager on the card (chip_smoke.py's
+# SLICE_TOL: 2e-4 per pose entry, 1e-4 relative cost)
 POSE_TOL, COST_TOL = 2e-4, 1e-4
 
 
@@ -713,12 +790,16 @@ def close_windows(a, b):
     assert torch.allclose(a[3], b[3], rtol=COST_TOL, atol=1e-6)
     assert torch.allclose(a[5], b[5], atol=POSE_TOL, rtol=0)
     assert torch.equal(a[2], b[2])
+    # the covariances, inside the graph (an LU inverse per window): within
+    # 1e-3 of their norm
+    assert float((a[6] - b[6]).norm()) <= 1e-3 * float(b[6].norm())
 
 
 @pytest.mark.cuda
 def test_cuda_window_batch_graph_matches_eager(cuda):
-    """solve_windows from its graph against eager on the card, B6 counted
-    once per LM iteration either way, and a replay with new inputs."""
+    """solve_windows (the LM, the covariances and the gathers, one graph)
+    against eager on the card, B6 counted once per LM iteration either
+    way, and a replay with new inputs."""
     win = to(windows(B=4, P=4, L=16), cuda)
     with graphs.eager():
         cuda_kernels.reset_counters()
@@ -730,7 +811,7 @@ def test_cuda_window_batch_graph_matches_eager(cuda):
         got = ba.solve_windows(*win, iters=5)
         assert cuda_kernels.LAUNCHES == eager_launches
         close_windows(got, want)
-    assert ba._bundle_and_system.replays == 2
+    assert ba.solve_windows.replays == 2
     win2 = to(windows(B=4, P=4, L=16, seed=1), cuda)
     got2 = ba.solve_windows(*win2, iters=5)
     with graphs.eager():
@@ -753,7 +834,7 @@ def test_cuda_keys_sharing_a_pool_replay_in_any_order(cuda):
            for k in ("a", "b", "a", "b", "b", "a", "a", "b")]
     for k, g in got:
         close_windows(g, want[k])
-    st = ba._bundle_and_system.stats()
+    st = ba.solve_windows.stats()
     assert (st["keys"], st["captures"], st["replays"]) == (2, 2, 6)
 
 
@@ -795,6 +876,81 @@ def test_cuda_verification_graph_matches_eager(cuda):
         assert torch.equal(got["match_tgt"], want["match_tgt"])
         assert torch.allclose(got["T"], want["T"], atol=1e-5)
     assert loop_closure._verify_candidates.replays == 2
+
+
+def on_card(g, device):
+    g.device = str(device)
+    return g
+
+
+@pytest.mark.cuda
+def test_cuda_pose_graph_optimize_graph_matches_eager(cuda):
+    """All 15 LM iterations of the pose graph from one graph against eager
+    on the card; a loop edge more stays in the 64-edge bucket and replays
+    the same graph."""
+    g = on_card(pose_graph(N=17, loops=((0, 12), (3, 16))), cuda)
+    args, n_valid = g._dense_args()
+
+    def run(a):
+        return pg_ops.optimize(*a, iters=15, n_valid=n_valid)
+
+    with graphs.eager():
+        want = run(args)
+    for _ in range(3):
+        got = run(args)
+        assert torch.allclose(got[0], want[0], atol=1e-4, rtol=0)
+        assert torch.allclose(got[1], want[1], rtol=1e-3, atol=1e-6)
+    assert (pg_ops.optimize.captures, pg_ops.optimize.replays) == (1, 2)
+    g.add_edge(2, 14, g.nodes[14] @ np.linalg.inv(g.nodes[2]),
+               np.eye(6) * 1e-2)
+    args2, _ = g._dense_args()
+    got2 = run(args2)
+    with graphs.eager():
+        want2 = run(args2)
+    assert torch.allclose(got2[0], want2[0], atol=1e-4, rtol=0)
+    assert pg_ops.optimize.stats()["keys"] == 1
+    assert pg_ops.optimize.replays == 3
+
+
+@pytest.mark.cuda
+def test_cuda_gate_matrix_graph_matches_eager(cuda):
+    """The posterior refresh and the gate sweep over the bucket's padded pairs from
+    one graph against eager on the card: distances within 1e-3, the same
+    pairs failing closed; PoseGraph.gate_distances replays it."""
+    g = on_card(pose_graph(N=17, loops=((0, 12),)), cuda)
+    args, n_valid, pairs = pose_graph_args(g)
+    pairs = tuple(p.to(cuda) for p in pairs)
+    with graphs.eager():
+        want = pg_ops.gate_matrix(*args, *pairs, n_valid=n_valid)
+    for _ in range(3):
+        got = pg_ops.gate_matrix(*args, *pairs, n_valid=n_valid)
+        assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+        f = torch.isfinite(want)
+        assert torch.allclose(got[f], want[f], rtol=1e-3, atol=1e-4)
+    ii, jj = np.tril_indices(17, k=-1)
+    d = g.gate_distances(jj, ii)
+    np.testing.assert_allclose(d, want[:len(ii)].cpu().numpy(), rtol=1e-3,
+                               atol=1e-4)
+    st = pg_ops.gate_matrix.stats()
+    assert (st["keys"], st["captures"], st["replays"]) == (1, 1, 3)
+
+
+@pytest.mark.cuda
+def test_cuda_batched_lu_inverse_capture_raises(cuda):
+    """The covariances' old route, torch.linalg.inv_ex at the window BA's
+    (16, 144, 144), synchronises with the host (its batched LU): its
+    capture raises naming the function."""
+    def batched_inverse(S):
+        return torch.linalg.inv_ex(S)[0]
+
+    f = graphs.graphed(batched_inverse)
+    A = torch.randn((16, 144, 144), device=cuda)
+    S = A @ A.transpose(1, 2) + 144 * torch.eye(144, device=cuda)
+    f(S)
+    with pytest.raises(RuntimeError,
+                       match="batched_inverse: capture failed"):
+        f(S)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
