@@ -1,0 +1,22 @@
+"""Reductions of host-clock records to end-to-end numbers."""
+
+from __future__ import annotations
+
+import math
+
+
+def rate(count: float, seconds: float) -> float:
+    """Work per second over the whole window."""
+    return count / seconds
+
+
+def percentile(values, q: float) -> float:
+    """The q-th percentile (0-100) of all values, by linear interpolation
+    between closest ranks (numpy's default)."""
+    xs = sorted(values)
+    if not xs:
+        raise ValueError("percentile of no values")
+    pos = (len(xs) - 1) * q / 100.0
+    lo = math.floor(pos)
+    hi = min(lo + 1, len(xs) - 1)
+    return xs[lo] + (xs[hi] - xs[lo]) * (pos - lo)
