@@ -2612,9 +2612,9 @@ MAIN_GRAPHS = ("models.frontend._chunk", "ops.ba.solve_windows",
                "models.loop_closure._verify_candidates",
                "ops.pose_graph.optimize", "ops.pose_graph.gate_matrix")
 GRAPH_RUNS = 5
-# find_loops' split of the loop-closure stage (PipelineResult.loop_timings)
-LOOP_SPLIT = ("gate_s", "reopt_s", "refine_s", "verify_s", "gate_refreshes",
-              "verify_calls")
+# find_loops' split of the loop-closure stage: its child spans
+# (PipelineResult.timings and counts, "loop_closure.<name>")
+LOOP_SPLIT = ("gate", "optimize", "refine", "verify")
 # KITTI 00's keyframe count: the dense pose graph's 704-node bucket
 KITTI00_KEYFRAMES = 652
 # a graphed pose-graph op against eager (graphs_phase): nodes in m, cost
@@ -2737,7 +2737,10 @@ def graphs_phase(pipeline, ck, graphs, L, R, scene, cfg, card) -> None:
                 "peak": torch.cuda.max_memory_allocated(),
                 "reserved": torch.cuda.memory_reserved(),
                 "stats": stats_delta(graphs.stats(), before),
-                "inv_ex": inv_calls[0], "split": dict(res.loop_timings),
+                "inv_ex": inv_calls[0],
+                "split": {k: (res.timings.get(f"loop_closure.{k}", 0.0),
+                              res.counts["spans"].get(f"loop_closure.{k}", 0))
+                          for k in LOOP_SPLIT},
                 "ates": {k: rep[k]["ate_rmse_m"] for k in STAGE_ATES
                          if k in rep},
                 "closures": [(c.frame_i, c.frame_j) for c in res.closures]}
@@ -2758,11 +2761,9 @@ def graphs_phase(pipeline, ck, graphs, L, R, scene, cfg, card) -> None:
             + f"; frontend {n_frames / t['frontend']:.1f} frames/s; ATE m "
             f"{json.dumps(r['ates'])}; closures {r['closures']}; launches "
             f"{r['launches']}; graphs {json.dumps(r['stats'])} ({card})")
-        sp = r["split"]
         log(f"[graphs] (c) loop closure split {label} (find_loops' "
-            f"timings): " + ", ".join(
-                f"{k} {sp[k]:.4f} s" if k.endswith("_s") else f"{k} "
-                f"{int(sp[k])}" for k in LOOP_SPLIT)
+            f"spans): " + ", ".join(f"{k} {s:.4f} s x{n}"
+                                    for k, (s, n) in r["split"].items())
             + f"; torch.linalg.inv_ex called from Python {r['inv_ex']} "
             f"times ({card})")
         if any(r["plain"].values()):

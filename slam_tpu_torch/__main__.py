@@ -13,9 +13,12 @@ Counterpart of ``python -m slam_tpu``, with the same flags and outputs:
       --out runs/all
 
 Writes ``config.json`` and ``reports.json`` into ``--out`` and, per
-sequence, ``cache/`` (the stage cache), ``report.json`` and, with ground
-truth, ``graphs/`` (the analysis suite). Without a card it raises unless
-``--cpu`` is given; it never falls back to the CPU by itself.
+sequence, ``cache/`` (the stage cache), ``report.json`` (with the stages'
+and their spans' seconds, ``timings_s``, and ``counts``: the spans'
+entries and the CUDA graphs' warm-ups, captures, replays and evictions)
+and, with ground truth, ``graphs/`` (the analysis suite). Without a card
+it raises unless ``--cpu`` is given; it never falls back to the CPU by
+itself.
 """
 
 from __future__ import annotations
@@ -138,6 +141,7 @@ def main(argv=None) -> int:
             else:
                 rep = {"timings_s": res.timings, "db_stats": res.db.stats(),
                        "num_closures": len(res.closures)}
+            rep["counts"] = res.counts
             reports[name] = rep
             pipeline.save_report(out_dir / "report.json", rep)
             log("slam_tpu_torch: sequence done", sequence=name,

@@ -33,6 +33,7 @@ from ..ops import ba
 from ..ops.stereo import backproject_np
 from ..parallel.mesh import Mesh, host_gather, stage_device
 from ..utils import metrics
+from ..utils.profiling import span
 from .trackstore import NO_ID, TrackStore
 
 
@@ -317,7 +318,8 @@ def window_step(calib, device: torch.device, iters: int = 20,
     current stream without waiting for the device. rel_T and rel_cov are
     each window's last pose and its covariance. Everything between the
     uploads and the read-back is ``ops.ba.solve_windows``, one CUDA graph
-    per window batch shape on the card."""
+    per window batch shape on the card. The uploads are the span
+    ``upload`` (``utils.profiling``)."""
     cuda = device.type == "cuda"
     calib_t = torch.as_tensor(np.asarray(calib, np.float32), device=device)
 
@@ -330,9 +332,10 @@ def window_step(calib, device: torch.device, iters: int = 20,
         return t.to(device, non_blocking=True)
 
     def step(poses0, points0, cam_idx, lm_idx, meas, w, n_poses):
-        p0, x0, ms, ww = (upload(a) for a in (poses0, points0, meas, w))
-        ci, li = (upload(a, torch.int64) for a in (cam_idx, lm_idx))
-        last = upload(np.asarray(n_poses) - 1, torch.int64)
+        with span("upload"):
+            p0, x0, ms, ww = (upload(a) for a in (poses0, points0, meas, w))
+            ci, li = (upload(a, torch.int64) for a in (cam_idx, lm_idx))
+            last = upload(np.asarray(n_poses) - 1, torch.int64)
         return ba.solve_windows(p0, x0, ci, li, ms, ww, last, calib_t,
                                 iters=iters, min_depth=min_depth,
                                 max_depth=max_depth, huber_delta=huber_delta)
@@ -359,7 +362,12 @@ def optimize_windows(batch: BundleBatch, calib,
     device (in one process, every window on the mesh's device); the
     ranks' results are gathered on the host in window order, so that
     every rank holds the whole result. Otherwise on ``device``, the card
-    unless the caller names the CPU."""
+    unless the caller names the CPU.
+
+    Spans (``utils.profiling``): ``upload`` (a slice's host inputs, their
+    pinned copies and uploads), ``wait`` (the host blocked on a slice's
+    event) and ``take_in`` (its outputs copied off pinned memory, the
+    slices joined and, over ranks, gathered, the result assembled)."""
     device = stage_device(mesh, device)
     cuda = device.type == "cuda"
     B = batch.num_windows
@@ -379,9 +387,9 @@ def optimize_windows(batch: BundleBatch, calib,
         # window, and keeps none of them
         n = max(min(s + size, B) - s, 0)
         s = min(s, B - 1)
-        host = [v[:n].to("cpu", non_blocking=True)
-                for v in step(*window_inputs(batch, s, s + max(n, 1),
-                                             size))]
+        with span("upload"):
+            inputs = window_inputs(batch, s, s + max(n, 1), size)
+        host = [v[:n].to("cpu", non_blocking=True) for v in step(*inputs)]
         ready = None
         if cuda:
             ready = torch.cuda.Event()
@@ -391,8 +399,10 @@ def optimize_windows(batch: BundleBatch, calib,
     def materialize(pend):
         host, ready = pend
         if ready is not None:
-            ready.synchronize()
-        parts.append([v.numpy().copy() for v in host])
+            with span("wait"):
+                ready.synchronize()
+        with span("take_in"):
+            parts.append([v.numpy().copy() for v in host])
 
     pend = None
     for s in starts:
@@ -401,10 +411,11 @@ def optimize_windows(batch: BundleBatch, calib,
             materialize(pend)
         pend = cur
     materialize(pend)
-    fields = tuple(np.concatenate(f) for f in zip(*parts))
-    if mesh is not None:
-        fields = host_gather(mesh, fields)
-    return _assemble_bundle_result(batch, *fields)
+    with span("take_in"):
+        fields = tuple(np.concatenate(f) for f in zip(*parts))
+        if mesh is not None:
+            fields = host_gather(mesh, fields)
+        return _assemble_bundle_result(batch, *fields)
 
 
 def _chain(rel_T: np.ndarray) -> np.ndarray:
@@ -536,10 +547,12 @@ def run_bundles(db: TrackStore, T_w2c: np.ndarray, calib,
     the caller names the CPU), or with ``mesh`` every window in one batch
     on the mesh's device, and then, with ``cfg.bundle.tp_overflow``, every
     capacity-overflowed window re-solved at full size on the TP
-    mega-bundle."""
-    kfs = select_keyframes(db, T_w2c, cfg.keyframes)
-    batch = build_windows(db, T_w2c, kfs, cfg.bundle)
-    init_landmarks(batch, calib)
+    mega-bundle. The host's selection, windows and landmarks are the span
+    ``build`` (``utils.profiling``)."""
+    with span("build"):
+        kfs = select_keyframes(db, T_w2c, cfg.keyframes)
+        batch = build_windows(db, T_w2c, kfs, cfg.bundle)
+        init_landmarks(batch, calib)
     res = optimize_windows(batch, calib, cfg.bundle, mesh=mesh,
                            device=device)
     if batch.overflow and mesh is not None and cfg.bundle.tp_overflow:

@@ -50,6 +50,7 @@ from ..config import SlamConfig
 from ..ops import (akaze, binary, cuda_kernels, features, matching, orb,
                    ransac, sift, stereo)
 from ..runtime import graphs
+from ..utils.profiling import span
 
 
 class DescriptorBank:
@@ -636,11 +637,19 @@ def run_frames(frames, calib, cfg: SlamConfig, device,
     the compute stream waits for; each chunk's per-frame outputs are read
     back into pinned memory behind an event and taken in one chunk later.
     The outputs equal a sequential loop's bit for bit: the same inputs,
-    the same ops, and RANSAC seeded by the chunk's position."""
+    the same ops, and RANSAC seeded by the chunk's position.
+
+    Spans (``utils.profiling``): ``setup`` (the calibration's upload, the
+    staging pairs, the copy stream), ``fill`` (the host copy into
+    staging), ``upload`` (its copies queued on the copy stream),
+    ``dispatch`` (the chunk queued: RANSAC's draw, the chunk's graph, its
+    read-back into pinned memory and the event behind it), ``wait`` (the
+    host blocked on an upload's or a chunk's event, or on the
+    checkpoint's read of the carry), ``take_in`` (the chunk's host
+    outputs taken in, ``on_chunk``, the checkpoint) and ``assemble``."""
     device = cuda_kernels.resolve_device(device)
     cuda = device.type == "cuda"
     nF, chunk = frames.num, cfg.runtime.chunk_frames
-    calib_t = torch.from_numpy(np.asarray(calib, np.float32)).to(device)
     fingerprint = _frontend_fingerprint(cfg)
     recompute = functools.partial(_recompute_chunks, frames, cfg, device)
 
@@ -662,25 +671,31 @@ def run_frames(frames, calib, cfg: SlamConfig, device,
             np.asarray(d, np.float16)).to(device)) for s, n, d in desc_chunks]
     starts = list(range(first_start, nF, chunk))
     if not starts:  # the checkpoint covers the whole sequence
-        return _assemble_result(outs, T_w2c_all, desc_chunks, recompute,
-                                device)
+        with span("assemble"):
+            return _assemble_result(outs, T_w2c_all, desc_chunks, recompute,
+                                    device)
 
-    shape = (chunk,) + frames.hw
-    staging = [tuple(torch.empty(shape, dtype=frames.dtype, pin_memory=cuda)
-                     for _ in range(2)) for _ in range(2)]
-    uploaded = [None, None]  # per staging pair: its last upload's event
-    copy_stream = torch.cuda.Stream(device) if cuda else None
-    compute = torch.cuda.current_stream(device) if cuda else None
+    with span("setup"):
+        calib_t = torch.from_numpy(np.asarray(calib, np.float32)).to(device)
+        shape = (chunk,) + frames.hw
+        staging = [tuple(torch.empty(shape, dtype=frames.dtype,
+                                     pin_memory=cuda)
+                         for _ in range(2)) for _ in range(2)]
+        uploaded = [None, None]  # per staging pair: its last upload's event
+        copy_stream = torch.cuda.Stream(device) if cuda else None
+        compute = torch.cuda.current_stream(device) if cuda else None
 
     def upload(i: int, start: int):
         pair = i % 2
         if uploaded[pair] is not None:
-            uploaded[pair].synchronize()
+            with span("wait"):
+                uploaded[pair].synchronize()
         n = min(chunk, nF - start)
-        frames.fill(start, n, *staging[pair])
+        with span("fill"):
+            frames.fill(start, n, *staging[pair])
         if not cuda:  # the CPU computes on the staging buffers themselves
             return staging[pair], n
-        with torch.cuda.stream(copy_stream):
+        with span("upload"), torch.cuda.stream(copy_stream):
             dev = tuple(b.to(device, non_blocking=True)
                         for b in staging[pair])
             uploaded[pair] = torch.cuda.Event()
@@ -693,28 +708,32 @@ def run_frames(frames, calib, cfg: SlamConfig, device,
         nonlocal T_carry, last_ckpt, seg_idx, seg_outs, seg_T
         start_p, n_p, host, ready, carry_p, is_last = pend
         if ready is not None:
-            ready.synchronize()
-        # copied off the pinned blocks, which return to the allocator
-        o = {k: v.numpy().copy() for k, v in host.items()}
-        T_w2c = o["T_chain"] @ T_carry[None]
-        T_carry = T_w2c[-1]
-        T_w2c_all.append(T_w2c)
-        outs.append(o)
-        seg_outs.append(o)
-        seg_T.append(T_w2c)
-        if on_chunk is not None:
-            on_chunk(start_p, n_p, o, T_w2c)
-        done = start_p + n_p
-        # carry_p is the carry as of this chunk, not the live one, which
-        # has moved past the chunk dispatched since
-        if checkpoint_path and (done - last_ckpt >= checkpoint_every
-                                or (is_last and seg_outs)):
-            _save_checkpoint(checkpoint_path, seg_outs, seg_T,
-                             {k: v.cpu().numpy() for k, v in carry_p.items()},
-                             T_carry, done, seg_idx, fingerprint)
-            last_ckpt = done
-            seg_idx += 1
-            seg_outs, seg_T = [], []
+            with span("wait"):
+                ready.synchronize()
+        with span("take_in"):
+            # copied off the pinned blocks, which return to the allocator
+            o = {k: v.numpy().copy() for k, v in host.items()}
+            T_w2c = o["T_chain"] @ T_carry[None]
+            T_carry = T_w2c[-1]
+            T_w2c_all.append(T_w2c)
+            outs.append(o)
+            seg_outs.append(o)
+            seg_T.append(T_w2c)
+            if on_chunk is not None:
+                on_chunk(start_p, n_p, o, T_w2c)
+            done = start_p + n_p
+            # carry_p is the carry as of this chunk, not the live one,
+            # which has moved past the chunk dispatched since
+            if checkpoint_path and (done - last_ckpt >= checkpoint_every
+                                    or (is_last and seg_outs)):
+                with span("wait"):
+                    carry_h = {k: v.cpu().numpy()
+                               for k, v in carry_p.items()}
+                _save_checkpoint(checkpoint_path, seg_outs, seg_T, carry_h,
+                                 T_carry, done, seg_idx, fingerprint)
+                last_ckpt = done
+                seg_idx += 1
+                seg_outs, seg_T = [], []
 
     frames.begin(first_start, chunk)
     try:
@@ -722,20 +741,21 @@ def run_frames(frames, calib, cfg: SlamConfig, device,
         pending = None
         for i, start in enumerate(starts):
             (bl, br), n = nxt
-            if cuda:
-                compute.wait_event(uploaded[i % 2])
-                bl.record_stream(compute)
-                br.record_stream(compute)
-            out, carry = process_chunk(
-                bl, br, carry, calib_t, cfg,
-                generator=chunk_generator(cfg, start // chunk, device))
-            desc_chunks.append((start, n, out.pop("desc")[:n]))
-            host = {k: v[:n].to("cpu", non_blocking=True)
-                    for k, v in out.items()}
-            ready = None
-            if cuda:
-                ready = torch.cuda.Event()
-                ready.record(compute)
+            with span("dispatch"):
+                if cuda:
+                    compute.wait_event(uploaded[i % 2])
+                    bl.record_stream(compute)
+                    br.record_stream(compute)
+                out, carry = process_chunk(
+                    bl, br, carry, calib_t, cfg,
+                    generator=chunk_generator(cfg, start // chunk, device))
+                desc_chunks.append((start, n, out.pop("desc")[:n]))
+                host = {k: v[:n].to("cpu", non_blocking=True)
+                        for k, v in out.items()}
+                ready = None
+                if cuda:
+                    ready = torch.cuda.Event()
+                    ready.record(compute)
             if i + 1 < len(starts):  # the host fills while the card works
                 nxt = upload(i + 1, starts[i + 1])
             if pending is not None:
@@ -744,7 +764,9 @@ def run_frames(frames, calib, cfg: SlamConfig, device,
         materialize(pending)
     finally:
         frames.end()
-    return _assemble_result(outs, T_w2c_all, desc_chunks, recompute, device)
+    with span("assemble"):
+        return _assemble_result(outs, T_w2c_all, desc_chunks, recompute,
+                                device)
 
 
 def run_frontend(images_left: np.ndarray, images_right: np.ndarray, calib,

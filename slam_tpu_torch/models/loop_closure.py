@@ -21,7 +21,6 @@ matcher does.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -30,6 +29,7 @@ import torch
 from ..config import LoopConfig, SlamConfig
 from ..ops import ba, matching, ransac, stereo
 from ..runtime import graphs
+from ..utils.profiling import span
 from .frontend import _pair_correspondences
 from .pose_graph import PoseGraph
 from .trackstore import TrackStore
@@ -104,21 +104,25 @@ def _refine_pair(links_i, links_j, inlier_mask, match_tgt, T_init, calib,
     out = ba.solve_windows(t(poses0), t(points0), t(ci), t(li), t(meas),
                            t(w), torch.as_tensor([1], device=calib_t.device),
                            calib_t, iters=15)
-    return out[5][0].cpu().numpy(), out[6][0].cpu().numpy()
+    with span("wait"):
+        return out[5][0].cpu().numpy(), out[6][0].cpu().numpy()
 
 
 def find_loops(pg: PoseGraph, db: TrackStore, desc,
-               desc_valid: np.ndarray, calib, cfg: SlamConfig = SlamConfig(),
-               timings: dict | None = None) -> list[Closure]:
+               desc_valid: np.ndarray, calib, cfg: SlamConfig = SlamConfig()
+               ) -> list[Closure]:
     """Scan keyframes in order, gate by Mahalanobis distance, verify by
     batched matching + RANSAC, refine by mini-bundle, insert the edge and
     re-optimize. Mutates ``pg``; returns the accepted closures.
 
     ``desc`` is the frontend's (F, K, D) DescriptorBank (or a tensor);
     every other input is host numpy. The verification runs on ``desc``'s
-    device, with the calibration copied there once. Stage
-    times (gate, verify, refine, re-optimize) accumulate into ``timings``
-    when it is given."""
+    device, with the calibration copied there once.
+
+    Spans (``utils.profiling``): ``gate`` (each refresh of the all-pairs
+    gate), ``verify`` (each batched verification), ``refine`` (each
+    accepted pair's mini-bundle) and ``optimize`` (``PoseGraph.optimize``
+    after each closure), each with a ``wait`` inside at its read-back."""
     lc: LoopConfig = cfg.loop
     device = desc.device
     calib_np = np.asarray(calib, np.float32)
@@ -128,25 +132,14 @@ def find_loops(pg: PoseGraph, db: TrackStore, desc,
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed + 1)
 
-    tm = timings if timings is not None else {}
-    for k_ in ("gate_s", "verify_s", "refine_s", "reopt_s", "gate_refreshes",
-               "verify_calls"):
-        tm.setdefault(k_, 0.0)
-
-    def _timed(bucket, fn):
-        t0 = time.perf_counter()
-        out = fn()
-        tm[bucket] += time.perf_counter() - t0
-        return out
-
     def all_pairs_gate():
-        ii, jj = np.tril_indices(N, k=-1)  # j < i pairs
-        D_ = np.full((N, N), np.inf, np.float32)
-        D_[ii, jj] = pg.gate_distances(jj, ii)
-        return D_
+        with span("gate"):
+            ii, jj = np.tril_indices(N, k=-1)  # j < i pairs
+            D_ = np.full((N, N), np.inf, np.float32)
+            D_[ii, jj] = pg.gate_distances(jj, ii)
+            return D_
 
-    D = _timed("gate_s", all_pairs_gate)
-    tm["gate_refreshes"] += 1
+    D = all_pairs_gate()
     closures: list[Closure] = []
     spec: dict[int, tuple] = {}
 
@@ -176,7 +169,6 @@ def find_loops(pg: PoseGraph, db: TrackStore, desc,
                 batch.append((m_, len(g), gp))
         if not batch:
             return
-        tm["verify_calls"] += 1
         C = lc.max_candidates
         n_real = len(batch) * C
         # padded to SPEC_Q queries, as the JAX package pads (its results
@@ -187,7 +179,7 @@ def find_loops(pg: PoseGraph, db: TrackStore, desc,
         f_q = np.repeat([kfs[b[0]] for b in padded], C)
         f_c = np.asarray([kfs[int(g)] for b in padded for g in b[2]])
 
-        def run():
+        with span("verify"):
             u = ransac.hypothesis_uniforms(n_real, desc_valid.shape[1],
                                            cfg.ransac.num_hypotheses, gen,
                                            device)
@@ -198,9 +190,8 @@ def find_loops(pg: PoseGraph, db: TrackStore, desc,
                 dev(desc_valid[f_c]), dev(db.links[f_c]),
                 dev(db.link_valid[f_c]), calib_t, u,
                 cfg.ransac.threshold_px)
-            return {k: v[:n_real].cpu().numpy() for k, v in vr.items()}
-
-        vr = _timed("verify_s", run)
+            with span("wait"):
+                vr = {k: v[:n_real].cpu().numpy() for k, v in vr.items()}
         for qi, (m_, n_good_, gp_) in enumerate(batch):
             sl = slice(qi * C, (qi + 1) * C)
             spec[m_] = ({k: v[sl] for k, v in vr.items()}, n_good_, gp_,
@@ -229,18 +220,18 @@ def find_loops(pg: PoseGraph, db: TrackStore, desc,
         nonlocal D
         g, fi, n_inl, frac, inliers, match_tgt, T0, maha = hit
         fj = kfs[n]
-        rel_T, rel_cov = _timed("refine_s", lambda: _refine_pair(
-            db.links[fi], db.links[fj], inliers, match_tgt, T0, calib_np,
-            calib_t, max_landmarks=cfg.bundle.max_landmarks))
+        with span("refine"):
+            rel_T, rel_cov = _refine_pair(
+                db.links[fi], db.links[fj], inliers, match_tgt, T0, calib_np,
+                calib_t, max_landmarks=cfg.bundle.max_landmarks)
         closures.append(Closure(kf_i=g, kf_j=n, frame_i=fi, frame_j=fj,
                                 num_inliers=n_inl, inlier_frac=frac,
                                 rel_T=rel_T, rel_cov=rel_cov,
                                 mahalanobis=maha))
         pg.add_edge(g, n, rel_T, rel_cov, loop=True)
         spec.clear()  # the posterior changed; discard speculation
-        _timed("reopt_s", pg.optimize)
-        D = _timed("gate_s", all_pairs_gate)
-        tm["gate_refreshes"] += 1
+        pg.optimize()
+        D = all_pairs_gate()
 
     def commit_from_back(deferred):
         """Leaving a familiar segment: re-verify the deferred keyframes

@@ -18,6 +18,10 @@ by ``n_valid``) and the gate's pairs to a multiple of ``_PAIR_PAD``, and
 slices the results back. So every refresh and re-optimisation of one
 ``find_loops`` call (N fixed, one edge more per closure) replays the
 same CUDA graph of each op.
+
+Spans (``utils.profiling``): ``build`` (``from_bundles``), ``optimize``
+(the LM, or the odometry chain, and its read-back) and ``wait``, the
+host blocked on each read-back of a result from the device.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 
 from ..ops import cuda_kernels, pg_sparse
 from ..ops import pose_graph as pg_ops
+from ..utils.profiling import span
 
 _EDGE_PAD = 64     # edge capacity grows in blocks of this many
 _NODE_PAD = 64     # node capacity too: one graph per bucket of nodes
@@ -76,18 +81,19 @@ class PoseGraph:
     def from_bundles(bundle_result, device="cuda") -> "PoseGraph":
         """The odometry chain of a BundleResult; its dense solves run on
         ``device`` (the card unless the caller names the CPU)."""
-        device = cuda_kernels.resolve_device(device)
-        B = bundle_result.rel_T.shape[0]
-        return PoseGraph(
-            nodes=bundle_result.T_w2c_keyframes.astype(np.float32).copy(),
-            keyframes=list(bundle_result.keyframes),
-            e_i=np.arange(B, dtype=np.int32),
-            e_j=np.arange(1, B + 1, dtype=np.int32),
-            Z=bundle_result.rel_T.astype(np.float32).copy(),
-            sqrt_info=np.stack([sqrt_info_from_cov(c)
-                                for c in bundle_result.rel_cov]
-                               ).astype(np.float32),
-            is_loop=np.zeros(B, bool), device=str(device))
+        with span("build"):
+            device = cuda_kernels.resolve_device(device)
+            B = bundle_result.rel_T.shape[0]
+            return PoseGraph(
+                nodes=bundle_result.T_w2c_keyframes.astype(np.float32).copy(),
+                keyframes=list(bundle_result.keyframes),
+                e_i=np.arange(B, dtype=np.int32),
+                e_j=np.arange(1, B + 1, dtype=np.int32),
+                Z=bundle_result.rel_T.astype(np.float32).copy(),
+                sqrt_info=np.stack([sqrt_info_from_cov(c)
+                                    for c in bundle_result.rel_cov]
+                                   ).astype(np.float32),
+                is_loop=np.zeros(B, bool), device=str(device))
 
     def add_edge(self, i: int, j: int, Z: np.ndarray, cov: np.ndarray,
                  loop: bool = True) -> None:
@@ -187,12 +193,17 @@ class PoseGraph:
                 self.num_nodes)
 
     def optimize(self, iters: int = 15) -> float:
-        """Re-optimize all nodes; returns the final cost.
+        """Re-optimize all nodes; returns the final cost. The span
+        ``optimize``.
 
         An odometry-only graph takes the analytic path: with node 0
         anchored and no loop edges, X_{k+1} = Z_k X_k is the exact
         zero-residual solution, computed in float64 on the host (LM in
         float32 from that optimum random-walks on cost noise)."""
+        with span("optimize"):
+            return self._optimize(iters)
+
+    def _optimize(self, iters: int) -> float:
         if not self.is_loop.any() and self._chain_layout():
             nodes = self.nodes.astype(np.float64)
             Z = self.Z.astype(np.float64)
@@ -209,15 +220,17 @@ class PoseGraph:
             args, n_valid = self._dense_args()
             nodes, cost = pg_ops.optimize(*args, iters=iters,
                                           n_valid=n_valid)
-        self.nodes = nodes[:self.num_nodes].cpu().numpy()
-        return float(cost)
+        with span("wait"):
+            self.nodes = nodes[:self.num_nodes].cpu().numpy()
+            return float(cost)
 
     def covariance_full(self) -> np.ndarray:
         """(N, 6, N, 6) posterior covariance."""
         args, n_valid = self._dense_args()
         N = self.num_nodes
         C = pg_ops.gn_hessian_inverse(*args, n_valid=n_valid)
-        return C[:N, :, :N, :].cpu().numpy()
+        with span("wait"):
+            return C[:N, :, :N, :].cpu().numpy()
 
     def marginal(self, i: int, C: np.ndarray | None = None) -> np.ndarray:
         """Marginal 6x6 covariance of node ``i`` (from ``C``, the
@@ -243,7 +256,8 @@ class PoseGraph:
             args, n_valid = self._dense_args()
             loc, rot = pg_ops.marginal_logdets(*args, n_valid=n_valid)
         N = self.num_nodes
-        return loc[:N].cpu().numpy(), rot[:N].cpu().numpy()
+        with span("wait"):
+            return loc[:N].cpu().numpy(), rot[:N].cpu().numpy()
 
     def gate_distances(self, pair_i: np.ndarray,
                        pair_j: np.ndarray) -> np.ndarray:
@@ -256,12 +270,14 @@ class PoseGraph:
             d = pg_sparse.gate_matrix_sparse(*self._sparse_arrays(),
                                              t(pair_i, torch.int64),
                                              t(pair_j, torch.int64))
-            return d.cpu().numpy()
+            with span("wait"):
+                return d.cpu().numpy()
         pi, pj = self._padded_pairs(pair_i, pair_j)
         args, n_valid = self._dense_args()
         d = pg_ops.gate_matrix(*args, self._tensor(pi), self._tensor(pj),
                                n_valid=n_valid)
-        return d[:len(pair_i)].cpu().numpy()
+        with span("wait"):
+            return d[:len(pair_i)].cpu().numpy()
 
     def save(self, path: str | Path) -> None:
         np.savez_compressed(

@@ -43,12 +43,10 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-import time
 from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
-import torch
 
 from .config import SlamConfig
 from .models import bundle as bundle_mod
@@ -57,7 +55,9 @@ from .models import loop_closure as lc_mod
 from .models.pose_graph import PoseGraph
 from .models.trackstore import TrackStore
 from .parallel.mesh import stage_device
+from .runtime import graphs
 from .utils import metrics
+from .utils.profiling import StageTimer, unrecorded
 
 
 @dataclass
@@ -68,10 +68,12 @@ class PipelineResult:
     pose_graph: PoseGraph          # after loop closure
     pose_graph_pre_lc: PoseGraph   # before loop closure
     closures: list
+    # host seconds per span: the stages, and their children by dotted key
     timings: dict = field(default_factory=dict)
     calib: np.ndarray | None = None
-    # find_loops' split of the loop-closure stage (its ``timings``)
-    loop_timings: dict = field(default_factory=dict)
+    # "spans": entries per key of ``timings``; "graphs": this call's
+    # warm-ups, captures, replays and evictions of the CUDA graphs
+    counts: dict = field(default_factory=dict)
 
     @property
     def T_frontend(self) -> np.ndarray:
@@ -128,23 +130,44 @@ def run_pipeline(images_left, images_right, calib,
     artifacts: a stage is loaded instead of recomputed while the cached
     config and input fingerprint match and every upstream stage was
     loaded too; the frontend reuses its own checkpoint there (a complete
-    one makes it a pure load)."""
+    one makes it a pure load).
+
+    ``timings`` holds each stage's host seconds (``frontend``,
+    ``trackstore``, ``bundles``, ``pose_graph``, ``loop_closure``, or
+    ``frontend+bundles_overlapped``) and the spans inside it by dotted key
+    (``frontend.wait``, ``loop_closure.gate``, ``bundles.graph:
+    solve_windows``: ``utils.profiling``; none inside the overlapped
+    stage), ``counts`` their entries and the call's CUDA-graph counts.
+    Under ``torch.profiler`` every span is also a ``stage:<key>``
+    annotation on the profiler's timeline."""
+    timer = StageTimer()
+    before = graphs.totals()
+    with timer.active():
+        res = _run_stages(timer, images_left, images_right, calib, cfg,
+                          cache_dir, run_loop_closure, verbose, mesh,
+                          overlap, image_hw, device)
+    after = graphs.totals()
+    res.timings = timer.report()
+    res.counts = {"spans": dict(timer.counts),
+                  "graphs": {k: after[k] - before[k] for k in after}}
+    return res
+
+
+def _run_stages(timer, images_left, images_right, calib, cfg, cache_dir,
+                run_loop_closure, verbose, mesh, overlap, image_hw,
+                device) -> PipelineResult:
     from_disk = isinstance(images_left, (list, tuple))
     if from_disk and (mesh is not None or overlap):
         raise ValueError("mesh/overlap modes require in-memory image arrays")
     device = str(stage_device(mesh, device))
     if mesh is not None and mesh.rank != 0:
         verbose, cache_dir = False, None  # rank 0 logs and writes
-    timings = {}
     log = print if verbose else (lambda *a, **k: None)
 
     def timed(name, fn):
-        t0 = time.perf_counter()
-        # a named span on the profiler's timeline (chip_smoke.py --profile)
-        with torch.profiler.record_function(f"stage:{name}"):
+        with timer.span(name):
             out = fn()
-        timings[name] = time.perf_counter() - t0
-        log(f"[pipeline] {name}: {timings[name]:.2f}s")
+        log(f"[pipeline] {name}: {timer.seconds(name):.2f}s")
         return out
 
     cache = Path(cache_dir) if cache_dir is not None else None
@@ -184,9 +207,14 @@ def run_pipeline(images_left, images_right, calib,
     if mesh is not None and overlap:
         from .parallel.stage_overlap import run_pipeline_overlapped
 
-        fe, db, bundles = timed(
-            "frontend+bundles_overlapped", lambda: run_pipeline_overlapped(
-                images_left, images_right, calib, cfg, mesh=mesh))
+        def overlapped():
+            # over ranks each runs another half of the stage: no span
+            # inside it, so that every rank records the same keys
+            with unrecorded():
+                return run_pipeline_overlapped(images_left, images_right,
+                                               calib, cfg, mesh=mesh)
+
+        fe, db, bundles = timed("frontend+bundles_overlapped", overlapped)
         if cache is not None:
             db.save(cache / "trackstore.npz")
     else:
@@ -227,21 +255,19 @@ def run_pipeline(images_left, images_right, calib,
                lambda o, p: o.save(p))
     pg_pre = pg.copy()
     closures = []
-    loop_timings = {}
     if run_loop_closure:
         lc_file = cache / "pose_graph_lc.npz" if cache is not None else None
         cl_file = cache / "closures.npz" if cache is not None else None
         if cache is not None and reuse and lc_file.exists() \
                 and cl_file.exists():
-            t0 = time.perf_counter()
-            pg = PoseGraph.load(lc_file, device=device)
-            closures = lc_mod.load_closures(cl_file)
-            timings["loop_closure"] = time.perf_counter() - t0
+            with timer.span("loop_closure"):
+                pg = PoseGraph.load(lc_file, device=device)
+                closures = lc_mod.load_closures(cl_file)
             log(f"[pipeline] loop_closure: loaded from cache "
-                f"({timings['loop_closure']:.2f}s)")
+                f"({timer.seconds('loop_closure'):.2f}s)")
         else:
             closures = timed("loop_closure", lambda: lc_mod.find_loops(
-                pg, db, fe.desc, fe.valid, calib, cfg, loop_timings))
+                pg, db, fe.desc, fe.valid, calib, cfg))
             if cache is not None:
                 pg.save(lc_file)
                 lc_mod.save_closures(closures, cl_file)
@@ -249,9 +275,8 @@ def run_pipeline(images_left, images_right, calib,
             f"{[(c.frame_i, c.frame_j, c.num_inliers) for c in closures]}")
     return PipelineResult(frontend=fe, db=db, bundles=bundles,
                           pose_graph=pg, pose_graph_pre_lc=pg_pre,
-                          closures=closures, timings=timings,
-                          calib=np.asarray(calib, np.float32),
-                          loop_timings=loop_timings)
+                          closures=closures,
+                          calib=np.asarray(calib, np.float32))
 
 
 def evaluate(result: PipelineResult, T_gt: np.ndarray) -> dict:

@@ -51,9 +51,15 @@ plain versions' calls, and any a caller adds there before the capture),
 takes them back (a capture launches nothing), and adds them at every
 replay, so that a run counts the same launches with graphs and under
 ``eager()``. ``stats()`` gives warm-ups, captures, replays, keys and the
-bytes of the capture pool per function; ``clear()`` frees every graph
-and its memory pool. Each function keeps at most ``MAX_KEYS`` graphs,
-the least recently used going first.
+bytes of the capture pool per function, ``totals()`` their sums;
+``clear()`` frees every graph and its memory pool. Each function keeps
+at most ``MAX_KEYS`` graphs, the least recently used going first.
+
+Each call that reaches a graph (not inline, not on the CPU, not under
+``eager()``) is a span ``graph:<function name>`` of the active
+``utils.profiling`` timer: the host's launch, from the input copies into
+the static buffers to the output clones. A key's first call opens a
+``warmup`` span inside it, its second a ``capture`` span.
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops import cuda_kernels
+from ..utils import profiling
 
 # window batches come in several shapes on one path: the 16-window
 # batch, the loop-closure pair and the overlap's flushes, each of its own
@@ -77,6 +84,8 @@ MAX_KEYS = 8
 # one of its own before the capture, as chip_smoke.py counts B6 by shape)
 COUNTERS = [cuda_kernels.LAUNCHES, cuda_kernels.PLAIN_CALLS]
 _LEAF = "tensor"
+# the counts that ``totals()`` sums
+TOTALS = ("warmups", "captures", "replays", "evictions")
 
 
 class CudaPool:
@@ -248,6 +257,8 @@ class GraphedFunction:
                              f"{sorted(unknown)} are not its arguments")
         mod = fn.__module__.split("slam_tpu_torch.")[-1]
         self.name = f"{mod}.{fn.__qualname__}"
+        # no dots: a span's key joins the names of the open spans by dots
+        self.span_name = f"graph:{fn.__name__}"
         self._entries: OrderedDict = OrderedDict()
         self._pools: dict = {}   # device -> the pool its graphs share
         self._reset_counts()
@@ -283,15 +294,17 @@ class GraphedFunction:
             return self.fn(*args, **kwargs)
         key = (statics, spec,
                tuple((tuple(t.shape), t.dtype, t.device) for t in leaves))
-        with _LOCK:
+        with profiling.span(self.span_name), _LOCK:
             entry = self._entries.get(key)
             if entry is None:
                 self._insert(key)
                 self.warmups += 1
-                return self._inline(bound.args, bound.kwargs)
+                with profiling.span("warmup"):
+                    return self._inline(bound.args, bound.kwargs)
             self._entries.move_to_end(key)
             if entry.graph is None:
-                self._capture(entry, bound, spec, leaves, devices.pop())
+                with profiling.span("capture"):
+                    self._capture(entry, bound, spec, leaves, devices.pop())
             return self._replay(entry, leaves)
 
     def _insert(self, key) -> None:
@@ -381,6 +394,16 @@ def stats() -> dict:
     its memory pool."""
     with _LOCK:
         return {f.name: f.stats() for f in _FUNCTIONS}
+
+
+def totals() -> dict:
+    """Warm-ups, captures, replays and evictions so far, summed over
+    every graphed function."""
+    out = dict.fromkeys(TOTALS, 0)
+    for st in stats().values():
+        for k in TOTALS:
+            out[k] += st[k]
+    return out
 
 
 def clear() -> None:

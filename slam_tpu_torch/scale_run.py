@@ -147,9 +147,9 @@ def main(argv=None) -> int:
 
     @contextlib.contextmanager
     def running(stage: str):
-        with timer.span(stage):
+        with timer.active(), timer.span(stage):
             yield
-        timings[stage] = timer.spans[stage]
+        timings[stage] = timer.seconds(stage)
         timings_path.write_text(json.dumps(timings, indent=2))
         ran.append(stage)
         log(f"scale: {stage}", seconds=f"{timings[stage]:.1f}")
@@ -261,10 +261,8 @@ def main(argv=None) -> int:
         if fresh("loop", f_pg_lc, f_closures):
             with running("loop"):
                 pg = PoseGraph.load(f_pg, device=device)
-                loop_tm: dict = {}
                 closures = lc_mod.find_loops(pg, db, fe.desc, fe.valid, calib,
-                                             cfg, timings=loop_tm)
-                log("scale: loop stage breakdown", **loop_tm)
+                                             cfg)
                 pg.save(f_pg_lc)
                 f_closures.write_text(json.dumps([
                     {"kf_i": c.kf_i, "kf_j": c.kf_j, "frame_i": c.frame_i,
@@ -272,6 +270,11 @@ def main(argv=None) -> int:
                      "inlier_frac": c.inlier_frac,
                      "mahalanobis": c.mahalanobis} for c in closures],
                     indent=2, default=float))
+        if "loop" in ran:
+            log("scale: loop stage breakdown", **{
+                k[len("loop."):]: f"{v:.3f}s x{timer.counts[k]}"
+                for k, v in timer.report().items()
+                if k.startswith("loop.")})
         pg_lc = PoseGraph.load(f_pg_lc, device=device)
         closures_meta = json.loads(f_closures.read_text())
         log("scale: loop closure", closures=len(closures_meta),

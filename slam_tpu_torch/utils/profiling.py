@@ -2,7 +2,9 @@
 
 Counterpart of ``slam_tpu/utils/profiling.py``:
 
-  * :class:`StageTimer` - nested wall-clock spans with a JSON dump;
+  * :class:`StageTimer` - nested host-clock spans (seconds and entries
+    per dotted key), the program's one span mechanism; :func:`span` opens
+    one on the timer active in this context (``run_pipeline``'s);
   * :func:`device_trace` - a ``torch.profiler`` scope (host activity, and
     the card's when it is in use) that writes a Chrome trace into a
     directory;
@@ -12,10 +14,14 @@ Counterpart of ``slam_tpu/utils/profiling.py``:
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import json
 import logging
 import time
 from pathlib import Path
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 logger = logging.getLogger("slam_tpu_torch")
 if not logger.handlers:
@@ -25,6 +31,12 @@ if not logger.handlers:
     logger.addHandler(_h)
     logger.setLevel(logging.INFO)
 
+# a span's name on the profiler's timeline: STAGE + its dotted key
+STAGE = "stage:"
+_ACTIVE: contextvars.ContextVar = contextvars.ContextVar(
+    "slam_tpu_torch_stage_timer", default=None)
+_NULL = contextlib.nullcontext()
+
 
 def log(event: str, **fields) -> None:
     """Structured event log line (key=value pairs)."""
@@ -33,30 +45,86 @@ def log(event: str, **fields) -> None:
 
 
 class StageTimer:
-    """Nested wall-clock spans with a flat JSON report."""
+    """Nested host-clock spans with a flat report.
+
+    A span's key is its name under the spans open around it, joined by
+    dots (``frontend.wait``); seconds and entries are summed per key. The
+    clock is ``time.perf_counter_ns``. While a ``torch.profiler`` is
+    recording, each span is also a ``record_function`` named
+    ``stage:<key>``, on the timeline that stamps the device's events; with
+    none recording a span costs two clock reads and a few dict updates.
+
+    A span only times the host: one that should cover device work ends
+    on a host read of its result, which the code it wraps already makes.
+    The timer is not thread-safe: spans go to it from the thread that
+    made it active (``active``) alone; a thread started inside has no
+    active timer, and its spans are not recorded. ``run_pipeline``'s
+    overlapped stage records none inside it (``unrecorded``): over ranks
+    each runs another half of it, and no benchmark cell runs it."""
 
     def __init__(self) -> None:
-        self.spans: dict[str, float] = {}
-        self._stack: list[tuple[str, float]] = []
+        self.ns: dict[str, int] = {}
+        self.counts: dict[str, int] = {}
+        self._stack: list[str] = []
 
     @contextlib.contextmanager
     def span(self, name: str):
-        t0 = time.perf_counter()
-        self._stack.append((name, t0))
+        key = f"{self._stack[-1]}.{name}" if self._stack else name
+        if key not in self.ns:  # the report lists keys as first opened
+            self.ns[key] = self.counts[key] = 0
+        self._stack.append(key)
+        rf = None
+        if _autograd_profiler._is_profiler_enabled:
+            rf = torch.profiler.record_function(STAGE + key)
+            rf.__enter__()
+        t0 = time.perf_counter_ns()
         try:
             yield
         finally:
+            dt = time.perf_counter_ns() - t0
+            if rf is not None:
+                rf.__exit__(None, None, None)
             self._stack.pop()
-            prefix = ".".join(n for n, _ in self._stack)
-            key = f"{prefix}.{name}" if prefix else name
-            self.spans[key] = self.spans.get(key, 0.0) + (
-                time.perf_counter() - t0)
+            self.ns[key] += dt
+            self.counts[key] += 1
+
+    def active(self):
+        """Make this the timer that :func:`span` opens spans on, in this
+        context, for the length of the block."""
+        return _activate(self)
+
+    def seconds(self, key: str) -> float:
+        return self.ns.get(key, 0) * 1e-9
 
     def report(self) -> dict[str, float]:
-        return dict(self.spans)
+        """Seconds per dotted key."""
+        return {k: v * 1e-9 for k, v in self.ns.items()}
 
     def save(self, path: str | Path) -> None:
         Path(path).write_text(json.dumps(self.report(), indent=2))
+
+
+@contextlib.contextmanager
+def _activate(timer):
+    token = _ACTIVE.set(timer)
+    try:
+        yield timer
+    finally:
+        _ACTIVE.reset(token)
+
+
+def unrecorded():
+    """No active timer for the length of the block: spans opened inside
+    are not recorded."""
+    return _activate(None)
+
+
+def span(name: str):
+    """A span ``name`` under the spans open on the active timer (the
+    ``run_pipeline`` call this runs in); a no-op with no active timer, as
+    when a test calls a model or an op directly."""
+    timer = _ACTIVE.get()
+    return _NULL if timer is None else timer.span(name)
 
 
 @contextlib.contextmanager
@@ -68,8 +136,6 @@ def device_trace(out_dir: str | Path, enabled: bool = True,
     if not enabled:
         yield None
         return
-    import torch
-
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)

@@ -19,6 +19,7 @@ from slam_tpu.__main__ import main as jax_main
 from slam_tpu_torch import scale_run
 from slam_tpu_torch.__main__ import main as port_main
 from slam_tpu_torch.models import loop_closure
+from slam_tpu_torch.runtime import graphs
 from slam_tpu_torch.utils import analysis, kitti, synthetic
 
 from tests.test_torch_disk import u8
@@ -94,11 +95,15 @@ def test_cli_eager_load_agrees_with_prefetch(cli_runs, tmp_path):
 
 def test_cli_synthetic_straight(tmp_path):
     """--synthetic straight --frames 8 --no-analysis: rc 0, one report
-    with every pre-closure stage's ATE."""
+    with every pre-closure stage's ATE, and the span counts beside the
+    timings (each key of ``timings_s`` entered, every stage once)."""
     assert port_main(["--synthetic", "straight", "--frames", "8",
                       "--no-analysis", "--cpu", "--out", str(tmp_path)]) == 0
     rep = json.loads((tmp_path / "reports.json").read_text())["synthetic"]
     assert np.isfinite([rep[k]["ate_rmse_m"] for k in STAGES[:3]]).all()
+    spans = rep["counts"]["spans"]
+    assert set(spans) == set(rep["timings_s"]) and spans["frontend"] == 1
+    assert set(rep["counts"]["graphs"]) == set(graphs.TOTALS)
     assert not (tmp_path / "synthetic" / "graphs").exists()
 
 

@@ -32,6 +32,7 @@ from slam_tpu_torch.models.pose_graph import PoseGraph
 from slam_tpu_torch.ops import ba, cuda_kernels, ransac, se3, stereo
 from slam_tpu_torch.ops import pose_graph as pg_ops
 from slam_tpu_torch.runtime import graphs
+from slam_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -153,6 +154,38 @@ def test_warmup_then_capture_then_replay(stub):
     st = graphs.stats()[f.name]
     assert st["keys"] == 1 and st["replays"] == 2
     assert f.name.endswith(".toy")
+
+
+def test_graph_calls_are_spans_warmup_then_capture_then_neither(stub):
+    """Under an active timer each call that reaches a graph is a span
+    ``graph:<function name>`` under the open one: the first call holds a
+    ``warmup`` span, the second a ``capture`` span, the third neither. A
+    call under eager() and a graphed call inside a body open none."""
+    f = graphs.graphed(toy, static=("k",))
+    inner = graphs.graphed(lambda x: x * 2)
+    outer = graphs.graphed(lambda x: inner(x) + 1)
+    x = torch.arange(4.0)
+    timer = profiling.StageTimer()
+    seen = []
+    with timer.active(), timer.span("stage"):
+        for _ in range(3):
+            f(x, k=2)
+            seen.append(dict(timer.counts))
+        with graphs.eager():
+            f(x, k=2)
+        for _ in range(3):
+            outer(x)
+    key = "stage.graph:toy"
+    assert [c[key] for c in seen] == [1, 2, 3]
+    assert [c.get(f"{key}.warmup", 0) for c in seen] == [1, 1, 1]
+    assert [c.get(f"{key}.capture", 0) for c in seen] == [0, 1, 1]
+    lam = "stage.graph:<lambda>"
+    assert timer.counts == {"stage": 1, key: 3, f"{key}.warmup": 1,
+                            f"{key}.capture": 1, lam: 3, f"{lam}.warmup": 1,
+                            f"{lam}.capture": 1}
+    assert timer.ns[f"{key}.warmup"] + timer.ns[f"{key}.capture"] <= \
+        timer.ns[key] <= timer.ns["stage"]
+    assert (f.warmups, f.captures, f.replays) == (1, 1, 2)
 
 
 @pytest.mark.parametrize("change", ["shape", "dtype", "static", "none_arg"])
