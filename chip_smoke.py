@@ -48,6 +48,20 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      and torch.linalg.solve_ex at (64, 144, 144), the scene's batch and
      (1, 12, 12), and the wrapper's host microseconds per call at
      (1, 12, 12) (mean of 1000 calls, no synchronisation between);
+  2e. kernel B7 (schur_reduce, and its landmark steps schur_back) against
+     its plain version (ops.ba's _linearize and dense blocks) on the card,
+     both against the float64 plain version: on the scene's windows at
+     LM's first iteration, on seeded windows at (64, 24, 512, 4096) and
+     (16, 24, 512, 4096), and at the pair refinement's (1, 2, 512, 1024);
+     LM's damped system and the covariances' (S, ghat, Hll_inv, g_l, and
+     the landmark steps of one pose step). Tolerance: the kernel's error
+     per window relative to its largest entry at most 4x the plain
+     version's + 1e-6 (S, Hll_inv), + 1e-3 (what the residuals build:
+     ghat, g_l, the landmark steps); S exactly symmetric with the gauge
+     rows identity; a second launch equal bit for bit. Median times of
+     the kernel and the plain version (the reduction, and the reduction
+     with the landmark steps), the bound, and the wrapper's host
+     microseconds per call at the pair's shape;
   3. kernel B2 (mutual_nearest) against its plain version on the card at
      every call the main path makes: (32, 2048, 128) with the stereo and
      the temporal window of SlamConfig().matching, and loop verification's
@@ -58,10 +72,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      under the stereo and the temporal window; every index equal to the
      lowest-index argmin, ties included; median times;
   4. main path: run_pipeline + evaluate on an 80-frame 376x1241 loop
-     scene (157 m, 8000 landmarks) on the card, with B1, B2 and B6
+     scene (157 m, 8000 landmarks) on the card, with B1, B2, B6 and B7
      launched (B6 once per LM iteration of BA and of loop closure, by
-     shape), no plain version run and every stage's ATE under 1 m; B6's
-     time on the path from its launches and phase 2d's times. The path
+     shape; B7 once per LM iteration and once per covariance system), no
+     plain version run and every stage's ATE under 1 m; B6's time on the
+     path from its launches and phase 2d's times. The path
      runs from CUDA graphs (runtime.graphs): drive_path warms it until a
      pass captures no new graph, times a pass, then counts the launches
      of another under torch.profiler (after a lead pass in the same
@@ -87,8 +102,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
   4e. the BA engine A/B: ops.ba.optimize_bundle at B=64, P=24, L=512,
      M=4096, 20 iterations, on seeded synthetic windows, solving on B6
      and on the library (median of 5 after a warm-up, and the median
-     final cost of each), and one LM iteration split by phase (block
-     build, Schur reduction, solve, back-substitution, cost) from a
+     final cost of each), and one LM iteration split by phase (Schur
+     reduction (B7, with the linearization), solve, back-substitution,
+     cost) from a
      torch.profiler trace: host time, device busy time and the host's
      blocking calls of each phase (none allowed in back-substitution on
      B6: a pageable host copy there made the host wait every iteration);
@@ -218,8 +234,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      times with graphs (warm-ups, captures, replays): per-stage seconds,
      frontend frames/s, ATEs (each under 1 m and within 0.01 m of the
      eager run's), the eager run's closures, kernel launches equal to the
-     eager run's in every graphed run (B1 3, B2 7, B6 70), each graphed
-     function of the main path replayed in the third run, and
+     eager run's in every graphed run (B1 3, B2 7, B6 70, B7 72), each
+     graphed function of the main path replayed in the third run, and
      graphs.stats(); then two more in one torch.profiler trace (a lead
      run, then a counted one between two marker kernels), all replays,
      the counted run's launches equal to the trace's by kernel name; (e) peak device memory and the capture pools' bytes;
@@ -671,6 +687,107 @@ def check_b6(ck, S, g, label: str, bad=None) -> float:
     return err
 
 
+# where b7_args puts the slot table and lam
+B7_SLOT, B7_LAM = 7, 8
+
+
+def b7_args(ba, poses, points, cam, lm, meas, w, calib, lam0=1e-4):
+    """B7's arguments at LM's first iteration: the state after the first
+    depth prune (poses, points, cam, lm, meas, w, calib), the slot table
+    and lam (B,)."""
+    w = ba.prune_depth_weights(poses, points, cam, lm, w)
+    slot = ba._slot_table(cam, lm, w, poses.shape[1], points.shape[1])
+    lam = torch.full((poses.shape[0],), lam0, device=poses.device)
+    return poses, points, cam, lm, meas, w, calib, slot, lam
+
+
+def b7_bound(args):
+    """B7's bound, one reduction: the windows' poses and points, the
+    observed lanes' measurement and weight (4 floats), the slot table and
+    lam in; S, ghat, Hll_inv, g_l and the observed lanes' W out.
+    Multiply-adds (2 operations each): per observation ~80 for its
+    residual and Jacobians, 81 for its Hll, g_l and W terms, 216 for
+    V = W Hll^-1, Hpp's and V W^T's upper triangles, g_p and V g; per pair
+    of observations of one landmark, 108 for the 6x6 block V_il W_jl^T."""
+    slot = args[B7_SLOT]
+    B, L, P = slot.shape
+    n_l = (slot >= 0).sum(-1).double()
+    n_obs = float(n_l.sum())
+    pairs = float((n_l * (n_l - 1) / 2).sum())
+    n_bytes = 4 * (B * P * 16 + B * L * 3 + n_obs * (4 + 18) + slot.numel()
+                   + B + B * (36 * P * P + 6 * P) + B * L * 12)
+    return bound(n_bytes, 2 * (n_obs * (80 + 81 + 216) + pairs * 108))
+
+
+def b7_rel_err(x, ref) -> float:
+    """Largest |x - ref| over each window's largest |ref|, the worst
+    window's."""
+    B = ref.shape[0]
+    d = (x.double() - ref).abs().reshape(B, -1).amax(-1)
+    return float((d / ref.abs().reshape(B, -1).amax(-1).clamp_min(1e-30))
+                 .max())
+
+
+def check_b7(ck, args, label: str) -> float:
+    """Kernel B7 vs its plain version, both against the plain version in
+    float64, for LM's damped system and the covariances' (S, ghat,
+    Hll_inv, g_l; then the landmark steps from the float64 pose step).
+    Tolerance: the kernel's error per window relative to its largest
+    entry at most 4x the plain version's + 1e-6 for what is built from
+    the Jacobians alone (S, Hll_inv), + 1e-3 for what is built from the
+    residuals (ghat, g_l, the landmark steps): a residual of ~0.5 px is
+    the difference of a projection of up to ~1241 px and its measurement,
+    so the float32 rounding of the projection leaves ~1.5e-4 of it, which
+    the kernel and torch round apart (tests/test_torch_schur_reduce.py).
+    S exactly symmetric, the gauge rows identity, a second launch equal
+    bit for bit. Returns max abs (kernel - plain) of S over both
+    systems."""
+    a64 = tuple(t.double() if t.is_floating_point() else t for t in args)
+    err, worst = 0.0, {}
+    for lam_on in (True, False):
+        a32 = args if lam_on else args[:B7_LAM] + (None,)
+        b64 = a64 if lam_on else a64[:B7_LAM] + (None,)
+        eps = {} if lam_on else {"eps_l": 1e-6, "eps_s": 1e-8}
+        k = ck.schur_reduce(*a32, **eps)
+        k2 = ck.schur_reduce(*a32, **eps)
+        p = ck.schur_reduce_plain(*a32, **eps)
+        r64 = ck.schur_reduce_plain(*b64, **eps)
+        sync(k[0])
+        for name, i in (("S", 0), ("ghat", 1), ("Hll_inv", 2), ("g_l", 3)):
+            if not torch.equal(k[i], k2[i]):
+                fail(f"B7 {label}: {name} differs between two launches")
+            e_k, e_p = b7_rel_err(k[i], r64[i]), b7_rel_err(p[i], r64[i])
+            atol = 1e-6 if name in ("S", "Hll_inv") else 1e-3
+            if not e_k <= 4.0 * e_p + atol:
+                fail(f"B7 {label}: {name} (lam {lam_on}) error {e_k:.3e} > "
+                     f"4 x plain {e_p:.3e} + {atol}")
+            worst[f"{name}{'' if lam_on else ' cov'}"] = (e_k, e_p)
+        S = k[0]
+        if not torch.equal(S, S.transpose(1, 2)):
+            fail(f"B7 {label}: S not symmetric")
+        eye = torch.eye(6, device=S.device).expand(S.shape[0], 6, 6)
+        if not torch.equal(S[:, :6, :6], eye) or (S[:, :6, 6:] != 0).any():
+            fail(f"B7 {label}: the gauge rows are not identity")
+        err = max(err, float((k[0] - p[0]).abs().max()))
+    k = ck.schur_reduce(*args)
+    p = ck.schur_reduce_plain(*args)
+    r64 = ck.schur_reduce_plain(*a64)
+    dp = -torch.linalg.solve(r64[0], r64[1])
+    slot = args[B7_SLOT]
+    dl_k = ck.schur_back(dp.float(), slot, k[4], k[2], k[3])
+    dl_p = ck.schur_back_plain(dp.float(), slot, p[4], p[2], p[3])
+    dl_64 = ck.schur_back_plain(dp, slot, r64[4], r64[2], r64[3])
+    e_k, e_p = b7_rel_err(dl_k, dl_64), b7_rel_err(dl_p, dl_64)
+    if not e_k <= 4.0 * e_p + 1e-3:
+        fail(f"B7 {label}: dl error {e_k:.3e} > 4 x plain {e_p:.3e} + 1e-3")
+    worst["dl"] = (e_k, e_p)
+    log(f"[B7] {label} {tuple(slot.shape)} x {args[5].shape[1]} lanes: "
+        f"error vs float64 (kernel / plain) "
+        + ", ".join(f"{n} {a:.2e} / {b:.2e}" for n, (a, b) in worst.items())
+        + f"; max abs S vs plain {err:.3e}; repeats bit for bit")
+    return err
+
+
 def scene_windows(frontend, bundle, TrackStore, L, R, scene, cfg):
     """The scene's BA windows, built on the host from a frontend run on
     the card as run_bundles builds them."""
@@ -745,17 +862,18 @@ def solving_with(ba, solve):
         ba._spd_solve = saved
 
 
-LM_PHASES = ("block build", "Schur reduction", "solve", "back-substitution",
-             "cost")
+LM_PHASES = ("Schur reduction", "solve", "back-substitution", "cost")
 
 
 def lm_split(ba, se3, poses, points, cam, lm, meas, w, calib,
              runs: int = 5) -> dict:
     """One LM iteration by phase, from a torch.profiler trace of ``runs``
-    iterations after a warm-up: block build (residuals, Jacobians,
-    index_add_ blocks), Schur reduction (damping, landmark inverses, S and
-    ghat), solve (ba._spd_solve), back-substitution (landmark steps, pose
-    retraction) and cost (the trial state's cost). Each phase runs in a
+    iterations after a warm-up, on the main path's code: Schur reduction
+    (B7: the residuals, Jacobians and the damped S and ghat from the
+    observations and the slot table, which optimize_bundle makes once per
+    call and this makes once before the runs), solve (ba._spd_solve),
+    back-substitution (B7's landmark steps, pose retraction) and cost
+    (the trial state's cost). Each phase runs in a
     ``lm:<phase>`` range and the device is drained after it, so the
     phase's device work lies between its range's start and the next's.
     Per phase, medians over the runs: ``host_ms``, the range's host time
@@ -767,8 +885,11 @@ def lm_split(ba, se3, poses, points, cam, lm, meas, w, calib,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from slam_tpu_torch.ops import cuda_kernels as ck
+
     P, L = poses.shape[1], points.shape[1]
     lam = torch.full((poses.shape[0],), 1e-4, device=poses.device)
+    slot = ba._slot_table(cam, lm, w, P, L)
 
     @contextlib.contextmanager
     def phase(name):
@@ -777,16 +898,13 @@ def lm_split(ba, se3, poses, points, cam, lm, meas, w, calib,
         torch.cuda.synchronize()
 
     def iteration():
-        with phase("block build"):
-            J_pose, J_lm, r = ba._linearize(poses, points, cam, lm, meas, w,
-                                            calib)
-            blocks = ba._build_blocks(J_pose, J_lm, r, cam, lm, P, L)
         with phase("Schur reduction"):
-            S, ghat, Bm, Hll_inv = ba._damped_system(blocks, lam)
+            S, ghat, Hll_inv, g_l, cross = ck.schur_reduce(
+                poses, points, cam, lm, meas, w, calib, slot, lam)
         with phase("solve"):
             dp = -ba._spd_solve(S, ghat)
         with phase("back-substitution"):
-            dl = ba._back_substitute(dp, Bm, Hll_inv, blocks[1])
+            dl = ck.schur_back(dp, slot, cross, Hll_inv, g_l)
             new_poses = se3.retract(poses, dp.reshape(-1, P, 6))
         with phase("cost"):
             ba._cost(new_poses, points + dl, cam, lm, meas, w, calib)
@@ -925,7 +1043,8 @@ TRACE_NAMES = {"detect_maps": "maps_kernel<true, true>",
                "orientation_maps": "maps_kernel<false, true>",
                "akaze_octave": "akaze_octave_kernel<",
                "mutual_nearest": "mutual_kernel<",
-               "cholesky_solve": "cholesky_solve_kernel<"}
+               "cholesky_solve": "cholesky_solve_kernel<",
+               "schur_reduce": "schur_poses_kernel"}
 
 
 # host seconds of idle trace before the lead call and after the last
@@ -3421,6 +3540,49 @@ def main(argv=None) -> int:
     bounds["cholesky_solve"] = b6_bound(S_64, g_64)
     del S_scene, S_64, S_bad
 
+    # ---- 2e. kernel B7 ------------------------------------------------------
+    # the reduced systems' assembly: the scene's windows at LM's first
+    # iteration, seeded windows at BA's device_batch and at the loops'
+    # one slice, and the pair refinement's one window of two poses
+    bc = cfg.bundle
+    b7_sets = {"scene windows": b7_args(ba, *(
+        torch.as_tensor(a, device="cuda") for a in (
+            batch.poses0, batch.points0, batch.cam_idx.astype(np.int64),
+            batch.lm_idx.astype(np.int64), batch.meas, batch.w)), calib_t)}
+    for label, B_, P_, L_, M_ in (
+            ("device batch", 64, bc.max_poses, bc.max_landmarks, bc.max_obs),
+            ("loop slice", 16, bc.max_poses, bc.max_landmarks, bc.max_obs),
+            ("loop-closure pair", 1, 2, 512, 1024)):
+        b7_sets[label] = b7_args(ba, *synthetic_windows(
+            se3, stereo_ops, calib_t, B_, P_, L_, M_, SEED + B_), calib_t)
+    b7_err = max(check_b7(ck, t_, label) for label, t_ in b7_sets.items())
+    # by set: (kernel, plain, kernel landmark steps, plain landmark steps,
+    # bound) ms
+    b7_at = {}
+    for label, t_ in b7_sets.items():
+        k_, p_ = ck.schur_reduce(*t_), ck.schur_reduce_plain(*t_)
+        dp_ = torch.zeros_like(k_[1])
+        b7_at[label] = t = (
+            median_ms(lambda: ck.schur_reduce(*t_)),
+            median_ms(lambda: ck.schur_reduce_plain(*t_)),
+            median_ms(lambda: ck.schur_back(dp_, t_[B7_SLOT], k_[4], k_[2],
+                                            k_[3])),
+            median_ms(lambda: ck.schur_back_plain(dp_, t_[B7_SLOT], p_[4],
+                                                  p_[2], p_[3])),
+            *b7_bound(t_))
+        log(f"[B7] {label} {tuple(t_[B7_SLOT].shape)} x {t_[5].shape[1]} "
+            f"lanes, "
+            f"median of {TIMING_RUNS}: kernel {t[0]:.4f} ms (landmark steps "
+            f"{t[2]:.4f}), plain {t[1]:.4f} ms (landmark steps {t[3]:.4f}), "
+            f"bound {t[4]:.5f} ms ({t[5]}) ({card})")
+    b7_ms, b7_plain_ms = b7_at["device batch"][:2]
+    pair = b7_sets["loop-closure pair"]
+    log(f"[B7] wrapper host time at {tuple(pair[B7_SLOT].shape)}: "
+        f"{host_us(lambda: ck.schur_reduce(*pair)):.2f} us per call (mean "
+        f"of {HOST_CALLS} calls, no sync between) ({card})")
+    bounds["schur_reduce"] = b7_bound(b7_sets["device batch"])
+    del b7_sets, k_, p_, pair
+
     # ---- 3. kernel B2 -------------------------------------------------------
     # every call of the main path: the frontend's stereo and temporal
     # matching (windows of SlamConfig().matching) and loop verification
@@ -3502,6 +3664,10 @@ def main(argv=None) -> int:
          "replaces": "slam_tpu/ops/pallas_kernels.py:925",
          "max_abs_err": b6_err, "ms": b6_ms, "plain_ms": b6_plain_ms,
          "library_ms": b6_lib_ms},
+        {"name": "schur_reduce", "route": "cuda",
+         "source": "slam_tpu_torch/csrc/schur_reduce.cu",
+         "replaces": "no TPU kernel (plain jnp in slam_tpu/ops/ba.py)",
+         "max_abs_err": b7_err, "ms": b7_ms, "plain_ms": b7_plain_ms},
     ]
     for k in kernels:
         k["bound_ms"], k["bound_by"] = bounds[k["name"]]
@@ -3516,29 +3682,52 @@ def main(argv=None) -> int:
     # to count the counted pass's LM iterations by shape, each of which
     # launches B6 once. The graphs are captured calling the wrapper, with
     # its counter in graphs.COUNTERS, so each replay adds its capture's
-    # counts to it as to the launches (the wrapper launches what B6 does)
+    # counts to it as to the launches (the wrapper launches what B6 does).
+    # ba._covariance_system is counted the same way: B7 launches once per
+    # LM iteration and once per covariance system
     solves = collections.Counter()
+    covs = collections.Counter()
     b6_solve = ba._spd_solve
+    cov_system = ba._covariance_system
 
     def counting(S, g):
         solves[tuple(S.shape)] += 1
         return b6_solve(S, g)
 
+    def counting_covs(*a, **kw):
+        covs["systems"] += 1
+        return cov_system(*a, **kw)
+
+    def reset_counts():
+        solves.clear()
+        covs.clear()
+
     graphs.clear()
     ba._spd_solve = counting
-    graphs.COUNTERS.append(solves)
+    ba._covariance_system = counting_covs
+    graphs.COUNTERS.extend((solves, covs))
     try:
         main_path = drive_path(
             pipeline, ck, L, R, scene, cfg,
-            ("detect_maps", "mutual_nearest", "cholesky_solve"), "path", card,
-            on_reset=solves.clear, trace=True)
+            ("detect_maps", "mutual_nearest", "cholesky_solve",
+             "schur_reduce"), "path", card, on_reset=reset_counts,
+            trace=True)
     finally:
         ba._spd_solve = b6_solve
+        ba._covariance_system = cov_system
         graphs.COUNTERS.remove(solves)
+        graphs.COUNTERS.remove(covs)
     b6_launches = main_path["launches"]["cholesky_solve"]
     if b6_launches != sum(solves.values()):
         fail(f"path: {b6_launches} B6 launches for {dict(solves)} LM "
              f"iterations")
+    b7_launches = main_path["launches"]["schur_reduce"]
+    if b7_launches != b6_launches + covs["systems"]:
+        fail(f"path: {b7_launches} B7 launches for {b6_launches} LM "
+             f"iterations and {covs['systems']} covariance systems")
+    log(f"[B7] main path: {b7_launches} launches, one per LM iteration "
+        f"({b6_launches}) and per covariance system ({covs['systems']}) "
+        f"({card})")
     # B6's time on the path: each shape's launches at phase 2d's times
     for shape in solves:
         if shape not in b6_at:

@@ -12,15 +12,22 @@ as the leading dimension where the JAX package vmaps. One window:
   w        (M,)      observation weights (0 = padding / pruned)
 
 Each (pose, landmark) pair is observed at most once. Pose 0 is frozen
-(gauge). The Hessian blocks are built by a scatter (the JAX package's
-"scatter" engine; its one-hot and bf16 engines are TPU workarounds and
-are not ported, and neither is ``default_engine``, which chooses among
-them by JAX backend): each observation's terms to its own (landmark,
-pose) slot, then sums over the slots in a fixed order, so that a run on
-the card gives the same blocks bit for bit every time (``index_add_``'s
-atomics straight into the blocks sum in a varying order, and the
-float32 LM's accept path then parts between runs of the same inputs).
-Results agree with the JAX package to float32 rounding.
+(gauge). On the card the reduced pose system (every LM iteration's and
+the covariances') is linearized and built by kernel B7
+(``cuda_kernels.schur_reduce``) from the observations and a (B, L, P)
+table of each pair's observation (``_slot_table``), and B7's second entry
+point gives the landmark steps; no dense per-pair array is formed. On
+the CPU its plain version (``_linearize`` and the dense blocks) builds
+the Hessian blocks by a scatter (the JAX package's "scatter" engine; its
+one-hot and bf16 engines are TPU workarounds and are not ported, and
+neither is ``default_engine``, which chooses among them by JAX backend):
+each observation's terms to its own (landmark, pose) slot, then sums over
+the slots in a fixed order, and reduces them with dense products. Both
+sum in a fixed order, so that a run on the card gives the same system
+bit for bit every time (``index_add_``'s atomics straight into the
+blocks sum in a varying order, and the float32 LM's accept path then
+parts between runs of the same inputs). Results agree with the JAX
+package to float32 rounding.
 
 Every reduced pose system is solved by kernel B6
 (``cuda_kernels.cholesky_solve``: a batched Cholesky factorization and
@@ -102,6 +109,22 @@ def _tree_sum(x, dim: int):
         y = x[:h] + x[h:2 * h]
         x = torch.cat([y, x[2 * h:]]) if n % 2 else y
     return x[0]
+
+
+def _slot_table(cam_idx, lm_idx, w, P: int, L: int):
+    """(B, L, P) int32: the observation lane of each (landmark, pose)
+    pair, -1 where no lane of nonzero weight joins it (B7's index). Lanes
+    of zero weight add nothing to the system and are left out, so the
+    padded lanes, which all point at (landmark 0, pose 0), cannot hide
+    that pair's observation. A scatter of the lanes' indices by maximum:
+    the same table whatever order the device takes them in."""
+    B, M = cam_idx.shape
+    lane = torch.arange(M, device=cam_idx.device).expand(B, M)
+    lane = torch.where(w != 0, lane, -1)
+    table = torch.full((B, L * P), -1, dtype=torch.int64,
+                       device=cam_idx.device)
+    table = table.scatter_reduce_(1, lm_idx * P + cam_idx, lane, "amax")
+    return table.to(torch.int32).reshape(B, L, P)
 
 
 def _build_blocks(J_pose, J_lm, r, cam_idx, lm_idx, P, L):
@@ -197,16 +220,23 @@ def _spd_solve(S, g):
     return cuda_kernels.cholesky_solve(S, g)
 
 
-def _damped_system(blocks, lam):
-    """The LM-damped reduced system from the blocks of _build_blocks:
-    (S (B, 6P, 6P), ghat (B, 6P), Bm, Hll_inv (B, L, 3, 3))."""
+def _damped_system(blocks, lam, eps_l: float = 1e-8, eps_s: float = 0.0):
+    """The reduced system from the blocks of _build_blocks, damped by
+    lam (B,) (Hpp + lam I, Hll + lam I + eps_l I) or, with lam None,
+    undamped but for Hll + eps_l I; eps_s is added to S's diagonal after
+    the gauge. (S (B, 6P, 6P), ghat (B, 6P), Bm, Hll_inv (B, L, 3, 3)).
+    B7's plain version (``cuda_kernels.schur_reduce_plain``)."""
     g_p, g_l, Hpp, Hll, Wc = blocks
     dt, dev = Hpp.dtype, Hpp.device
     eye6 = torch.eye(6, dtype=dt, device=dev)
     eye3 = torch.eye(3, dtype=dt, device=dev)
-    Hpp_d = Hpp + lam[:, None, None, None] * eye6
-    Hll_inv = _inv3x3(Hll + lam[:, None, None, None] * eye3 + 1e-8 * eye3)
-    S, ghat, Bm = _reduced_system(Hpp_d, Hll_inv, Wc, g_p, g_l)
+    if lam is not None:
+        Hpp = Hpp + lam[:, None, None, None] * eye6
+        Hll = Hll + lam[:, None, None, None] * eye3
+    Hll_inv = _inv3x3(Hll + eps_l * eye3)
+    S, ghat, Bm = _reduced_system(Hpp, Hll_inv, Wc, g_p, g_l)
+    if eps_s:
+        S = S + eps_s * torch.eye(S.shape[-1], dtype=dt, device=dev)
     return S, ghat, Bm, Hll_inv
 
 
@@ -216,13 +246,20 @@ def _back_substitute(dp, Bm, Hll_inv, g_l):
     return -se3.mv3(Hll_inv, g_l + Wt_dp)
 
 
-def _schur_solve(J_pose, J_lm, r, cam_idx, lm_idx, P, L, lam):
-    """Damped normal equations by landmark marginalization. lam (B,).
-    Returns (delta_poses (B, P, 6), delta_points (B, L, 3))."""
-    blocks = _build_blocks(J_pose, J_lm, r, cam_idx, lm_idx, P, L)
-    S, ghat, Bm, Hll_inv = _damped_system(blocks, lam)
+def _schur_solve(poses, points, cam_idx, lm_idx, meas, w, calib, slot, lam,
+                 huber_delta: float = 0.0):
+    """The damped normal equations at the current state, by landmark
+    marginalization: the linearization, the reduced system and the
+    landmark steps by B7 (its plain version, ``_linearize`` and the dense
+    blocks, on the CPU), the pose step by B6. slot (B, L, P) from
+    _slot_table, lam (B,). Returns (delta_poses (B, P, 6), delta_points
+    (B, L, 3))."""
+    S, ghat, Hll_inv, g_l, cross = cuda_kernels.schur_reduce(
+        poses, points, cam_idx, lm_idx, meas, w, calib, slot, lam,
+        huber_delta=huber_delta)
     dp = -_spd_solve(S, ghat)
-    return dp.reshape(-1, P, 6), _back_substitute(dp, Bm, Hll_inv, blocks[1])
+    return (dp.reshape(-1, slot.shape[2], 6),
+            cuda_kernels.schur_back(dp, slot, cross, Hll_inv, g_l))
 
 
 def _cost(poses, points, cam_idx, lm_idx, meas, w, calib):
@@ -261,13 +298,12 @@ def optimize_bundle(poses, points, cam_idx, lm_idx, meas, w, calib,
     accept -> lam / 3, reject -> lam * 4 and keep the state.
     ``huber_delta > 0`` reweights observations by IRLS Huber.
     Returns (poses, points, cost (B,), lam (B,))."""
-    P, L = poses.shape[1], points.shape[1]
+    slot = _slot_table(cam_idx, lm_idx, w, poses.shape[1], points.shape[1])
     cost = _cost(poses, points, cam_idx, lm_idx, meas, w, calib)
     lam = torch.full_like(cost, lam0)
     for _ in range(iters):
-        J_pose, J_lm, r = _linearize(poses, points, cam_idx, lm_idx, meas, w,
-                                     calib, huber_delta)
-        dp, dl = _schur_solve(J_pose, J_lm, r, cam_idx, lm_idx, P, L, lam)
+        dp, dl = _schur_solve(poses, points, cam_idx, lm_idx, meas, w, calib,
+                              slot, lam, huber_delta)
         new_poses = se3.retract(poses, dp)
         new_points = points + dl
         new_cost = _cost(new_poses, new_points, cam_idx, lm_idx, meas, w,
@@ -317,16 +353,12 @@ def optimize_bundle_pruned(poses, points, cam_idx, lm_idx, meas, w, calib,
 
 def _covariance_system(poses, points, cam_idx, lm_idx, meas, w, calib):
     """The undamped Gauss-Newton Schur complement on the poses whose
-    inverse ``pose_covariances`` reads: S + 1e-8 I (B, 6P, 6P), the gauge
-    rows identity."""
-    P, L = poses.shape[1], points.shape[1]
-    J_pose, J_lm, r = _linearize(poses, points, cam_idx, lm_idx, meas, w,
-                                 calib)
-    g_p, g_l, Hpp, Hll, Wc = _build_blocks(J_pose, J_lm, r, cam_idx, lm_idx,
-                                           P, L)
-    eye3 = torch.eye(3, dtype=Hpp.dtype, device=Hpp.device)
-    S, _, _ = _reduced_system(Hpp, _inv3x3(Hll + 1e-6 * eye3), Wc, g_p, g_l)
-    return S + 1e-8 * torch.eye(P * 6, dtype=S.dtype, device=S.device)
+    inverse ``pose_covariances`` reads: S + 1e-8 I (B, 6P, 6P), with
+    Hll + 1e-6 I inverted and the gauge rows identity (B7)."""
+    slot = _slot_table(cam_idx, lm_idx, w, poses.shape[1], points.shape[1])
+    return cuda_kernels.schur_reduce(poses, points, cam_idx, lm_idx, meas, w,
+                                     calib, slot, None, eps_l=1e-6,
+                                     eps_s=1e-8)[0]
 
 
 def _marginals(S):

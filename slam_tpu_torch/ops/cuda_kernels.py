@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels, with their plain versions.
 
-Counterpart of ``slam_tpu/ops/pallas_kernels.py``. Six kernels:
+Counterpart of ``slam_tpu/ops/pallas_kernels.py`` (B1-B6), plus B7, which
+has no TPU counterpart. Seven kernels:
 
   B1 ``detect_maps``       Harris response, 5x5 NMS map and 8 orientation
                            cell maps in one pass (csrc/detect_maps.cu);
@@ -18,7 +19,15 @@ Counterpart of ``slam_tpu/ops/pallas_kernels.py``. Six kernels:
   B6 ``cholesky_solve``    batched Cholesky factorization and both
                            substitutions of bundle adjustment's reduced
                            pose systems (csrc/cholesky_solve.cu); every
-                           LM iteration of ops/ba.py.
+                           LM iteration of ops/ba.py;
+  B7 ``schur_reduce``      bundle adjustment's reduced pose system,
+                           linearized and built from each window's
+                           observations, and (its
+                           second entry point, ``schur_back``) the
+                           landmark steps (csrc/schur_reduce.cu); every
+                           LM iteration and the covariances of ops/ba.py.
+                           It replaces no TPU kernel: the JAX package
+                           builds this system in plain jnp.
 
 The JAX package's two thin wrappers over its B2 have their counterparts
 here and in ops/matching.py: ``nearest_neighbor`` below, and
@@ -56,21 +65,24 @@ BIG = 1e30
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(_PKG / "csrc" / n for n in (
     "detect_maps.cu", "mutual_nearest.cu", "akaze_octave.cu",
-    "cholesky_solve.cu"))
+    "cholesky_solve.cu", "schur_reduce.cu"))
 HEADERS = (_PKG / "csrc" / "launch.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "slam_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNELS = ("detect_maps", "mutual_nearest", "orientation_maps",
-           "harris_response", "akaze_octave", "cholesky_solve")
+           "harris_response", "akaze_octave", "cholesky_solve",
+           "schur_reduce")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 _lib = None
 build_log = ""
-# read from the library when it loads: B6's largest N, B5's most steps
+# read from the library when it loads: B6's largest N, B5's most steps,
+# B7's most pose rows
 cholesky_max_n = 0
 akaze_max_steps = 0
+schur_max_poses = 0
 
 
 def reset_counters() -> None:
@@ -118,7 +130,7 @@ def _run_all(cmds) -> str:
 
 def build() -> ctypes.CDLL:
     """Compile (once per source content) and load the kernel library."""
-    global _lib, build_log, cholesky_max_n, akaze_max_steps
+    global _lib, build_log, cholesky_max_n, akaze_max_steps, schur_max_poses
     if _lib is not None:
         return _lib
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -153,14 +165,21 @@ def build() -> ctypes.CDLL:
     lib.slam_cholesky_max_n.argtypes = []
     lib.slam_mutual_nearest.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, f,
                                         f, p, p, p, p, p, i, p]
+    lib.slam_schur_reduce.argtypes = [p, p, p, p, p, f, p, p, f, f, i, i, i,
+                                      i, p, p, p, p, p, p, p, i, p]
+    lib.slam_schur_back.argtypes = [p, p, p, p, p, i, i, i, i, p, i, p]
+    lib.slam_schur_max_poses.argtypes = []
     for fn in (lib.slam_detect_maps, lib.slam_harris_response,
                lib.slam_orientation_maps, lib.slam_akaze_octave,
                lib.slam_akaze_max_steps, lib.slam_akaze_static_path,
                lib.slam_cholesky_solve,
-               lib.slam_cholesky_max_n, lib.slam_mutual_nearest):
+               lib.slam_cholesky_max_n, lib.slam_mutual_nearest,
+               lib.slam_schur_reduce, lib.slam_schur_back,
+               lib.slam_schur_max_poses):
         fn.restype = i
     cholesky_max_n = lib.slam_cholesky_max_n()
     akaze_max_steps = lib.slam_akaze_max_steps()
+    schur_max_poses = lib.slam_schur_max_poses()
     _lib = lib
     return lib
 
@@ -503,3 +522,139 @@ def cholesky_solve(S: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     _check(err, "cholesky_solve")
     LAUNCHES["cholesky_solve"] += 1
     return x
+
+
+# ---------------------------------------------------------------------------
+# B7: the reduced pose system of bundle adjustment (csrc/schur_reduce.cu)
+# ---------------------------------------------------------------------------
+
+def schur_reduce_plain(poses, points, cam_idx, lm_idx, meas, w, calib, slot,
+                       lam=None, eps_l: float = 1e-8, eps_s: float = 0.0,
+                       huber_delta: float = 0.0):
+    """Plain version of B7: ``ops.ba``'s linearization and dense blocks
+    (``_linearize``, ``_build_blocks``, ``_damped_system``). Returns (S,
+    ghat, Hll_inv, g_l, Bm), the cross blocks as the dense Bm (B, 6P, 3L)
+    that ``schur_back_plain`` reads; ``slot`` gives only P and L."""
+    from . import ba
+
+    PLAIN_CALLS["schur_reduce"] += 1
+    L, P = slot.shape[1], slot.shape[2]
+    J_pose, J_lm, r = ba._linearize(poses, points, cam_idx, lm_idx, meas, w,
+                                    calib, huber_delta)
+    blocks = ba._build_blocks(J_pose, J_lm, r, cam_idx, lm_idx, P, L)
+    S, ghat, Bm, Hll_inv = ba._damped_system(blocks, lam, eps_l, eps_s)
+    return S, ghat, Hll_inv, blocks[1], Bm
+
+
+def schur_reduce(poses, points, cam_idx, lm_idx, meas, w, calib, slot,
+                 lam=None, eps_l: float = 1e-8, eps_s: float = 0.0,
+                 huber_delta: float = 0.0):
+    """Kernel B7: the reduced pose system of a batch of bundle windows,
+    linearized at their state and built from their observations
+    (csrc/schur_reduce.cu). The arguments of ``ops.ba.optimize_bundle``
+    (poses (B, P, 4, 4), points (B, L, 3), cam_idx, lm_idx (B, M), meas
+    (B, M, 3), w (B, M), calib (5,), float32; the indices read only by the
+    plain version), then slot (B, L, P) int32 from ``ops.ba._slot_table``,
+    lam (B,) float32 or None for no damping, and ``huber_delta`` (IRLS
+    Huber weights when > 0). Returns (S (B, 6P, 6P), ghat (B, 6P),
+    Hll_inv (B, L, 3, 3), g_l (B, L, 3), W (B, M, 6, 3)): the damped Schur
+    complement on the poses (Hpp + lam I, Hll + lam I + eps_l I), gauge
+    rows identity and eps_s added to the diagonal, exactly symmetric;
+    ``schur_back`` takes the last three. Raises ValueError for more pose
+    rows than the kernel (``schur_max_poses``) or B6 (``cholesky_max_n``)
+    takes. Besides the launches it makes no ctypes call."""
+    _require(poses.dim() == 4 and poses.shape[2:] == (4, 4),
+             "schur_reduce: poses must be (B, P, 4, 4), got {}", poses.shape)
+    B, P = poses.shape[:2]
+    _require(points.dim() == 3 and points.shape[0] == B
+             and points.shape[2] == 3,
+             "schur_reduce: points must be ({}, L, 3), got {}", B,
+             points.shape)
+    L = points.shape[1]
+    _require(meas.dim() == 3 and meas.shape[0] == B and meas.shape[2] == 3
+             and w.shape == meas.shape[:2],
+             "schur_reduce: meas {} and w {} do not match", meas.shape,
+             w.shape)
+    M = w.shape[1]
+    _require(slot.shape == (B, L, P),
+             "schur_reduce: slot must be ({}, {}, {}), got {}", B, L, P,
+             slot.shape)
+    dev = poses.device
+    _require(all(t.device == dev for t in (points, meas, w, calib, slot)),
+             "schur_reduce: tensors on several devices")
+    if dev.type == "cpu":
+        return schur_reduce_plain(poses, points, cam_idx, lm_idx, meas, w,
+                                  calib, slot, lam, eps_l, eps_s,
+                                  huber_delta)
+    _require(dev.type == "cuda", "schur_reduce: unsupported device {}", dev)
+    _require(all(t.dtype == torch.float32
+                 for t in (poses, points, meas, w, calib))
+             and slot.dtype == torch.int32 and calib.shape == (5,),
+             "schur_reduce: expected float32 state and calib (5,) and an "
+             "int32 slot table")
+    _require(B > 0 and M > 0 and L > 0 and P > 0, "schur_reduce: empty input")
+    if lam is not None:
+        _require(lam.shape == (B,) and lam.dtype == torch.float32
+                 and lam.device == dev,
+                 "schur_reduce: lam must be float32 ({},) on {}", B, dev)
+        lam = lam.contiguous()
+    lib = build()
+    _require(P <= schur_max_poses and 6 * P <= cholesky_max_n,
+             "schur_reduce: P={} above the {} pose rows B7 and B6 take", P,
+             min(schur_max_poses, cholesky_max_n // 6))
+    poses, points, meas, w, calib, slot = (
+        t.contiguous() for t in (poses, points, meas, w, calib, slot))
+    N = 6 * P
+    J_pose = torch.empty((B, M, 3, 6), dtype=torch.float32, device=dev)
+    r = torch.empty((B, M, 3), dtype=torch.float32, device=dev)
+    W = torch.empty((B, M, 6, 3), dtype=torch.float32, device=dev)
+    Hll_inv = torch.empty((B, L, 3, 3), dtype=torch.float32, device=dev)
+    g_l = torch.empty((B, L, 3), dtype=torch.float32, device=dev)
+    S = torch.empty((B, N, N), dtype=torch.float32, device=dev)
+    ghat = torch.empty((B, N), dtype=torch.float32, device=dev)
+    err = lib.slam_schur_reduce(
+        poses.data_ptr(), points.data_ptr(), meas.data_ptr(), w.data_ptr(),
+        calib.data_ptr(), float(huber_delta), slot.data_ptr(),
+        None if lam is None else lam.data_ptr(), float(eps_l), float(eps_s),
+        B, L, P, M, J_pose.data_ptr(), r.data_ptr(), W.data_ptr(),
+        Hll_inv.data_ptr(), g_l.data_ptr(), S.data_ptr(), ghat.data_ptr(),
+        dev.index, _stream(poses))
+    _check(err, "schur_reduce")
+    LAUNCHES["schur_reduce"] += 1
+    return S, ghat, Hll_inv, g_l, W
+
+
+def schur_back_plain(dp, slot, cross, Hll_inv, g_l):
+    """Plain version of B7's landmark steps: ``ops.ba._back_substitute``
+    on the dense Bm (``cross``) of ``schur_reduce_plain``. Counted with
+    the reduction it belongs to, not on its own."""
+    from . import ba
+
+    return ba._back_substitute(dp, cross, Hll_inv, g_l)
+
+
+def schur_back(dp, slot, cross, Hll_inv, g_l):
+    """B7's second entry point: the landmark steps dl (B, L, 3) =
+    -Hll_inv (g_l + sum_p W_pl^T dp_p) from the pose step dp (B, 6P) and
+    ``schur_reduce``'s last three outputs (``cross`` is its W on the
+    card, the dense Bm of its plain version on the CPU). One launch,
+    counted with the reduction's (``LAUNCHES["schur_reduce"]``)."""
+    if dp.device.type == "cpu":
+        return schur_back_plain(dp, slot, cross, Hll_inv, g_l)
+    B, L, P = slot.shape
+    M = cross.shape[1]
+    _require(dp.shape == (B, 6 * P) and dp.dtype == torch.float32,
+             "schur_back: dp must be float32 ({}, {}), got {}", B, 6 * P,
+             dp.shape)
+    _require(cross.shape == (B, M, 6, 3) and Hll_inv.shape == (B, L, 3, 3)
+             and g_l.shape == (B, L, 3),
+             "schur_back: W, Hll_inv, g_l are not schur_reduce's")
+    lib = build()
+    dp = dp.contiguous()
+    dl = torch.empty((B, L, 3), dtype=torch.float32, device=dp.device)
+    err = lib.slam_schur_back(slot.data_ptr(), cross.data_ptr(),
+                              Hll_inv.data_ptr(), g_l.data_ptr(),
+                              dp.data_ptr(), B, L, P, M, dl.data_ptr(),
+                              dp.device.index, _stream(dp))
+    _check(err, "schur_back")
+    return dl

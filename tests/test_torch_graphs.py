@@ -768,6 +768,8 @@ def test_no_captured_body_syncs_or_copies_to_the_host():
         bad += _forbidden_calls(f, seen)
     assert len(seen) > 40  # the walk reached the kernels' wrappers
     assert cuda_kernels.cholesky_solve in seen
+    assert cuda_kernels.schur_reduce in seen
+    assert cuda_kernels.schur_back in seen
     assert cuda_kernels.mutual_nearest in seen
     assert cuda_kernels.detect_maps in seen
     # the covariances' inverse and the pose graph's bodies are walked too

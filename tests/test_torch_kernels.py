@@ -1,6 +1,7 @@
 """Kernels B1 (detect_maps), B2 (mutual_nearest), B3 (orientation_maps),
 B4 (harris_response), B5 (akaze_octave) and B6 (cholesky_solve) of the
-port.
+port; B7 (schur_reduce) has tests/test_torch_schur_reduce.py and is here
+only where every wrapper takes its plain version on CPU tensors.
 
 On the CPU the wrappers run their plain versions, which are held here
 against the JAX package's Pallas kernels in interpret mode. The tests
@@ -15,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from slam_tpu_torch.ops import ba
 from slam_tpu_torch.ops import cuda_kernels as ck
 from slam_tpu_torch.ops import matching
 
@@ -605,6 +607,17 @@ def test_cpu_tensors_take_the_plain_versions():
     a, b, va, vb, xa, xb = desc_sets(3, 2, 30, 40)
     ck.mutual_nearest(t(a), t(b), t(va), t(vb))
     ck.cholesky_solve(*(t(v) for v in spd_systems(3, 2, 12)))
+    # B7 on one window of two poses and three landmarks, each seen by both
+    cam = torch.tensor([[0, 1, 0, 1, 0, 1]])
+    lm = torch.tensor([[0, 0, 1, 1, 2, 2]])
+    w = torch.ones((1, 6))
+    ck.schur_reduce(torch.eye(4).repeat(1, 2, 1, 1),
+                    torch.tensor([[[0.0, 0.0, 5.0], [1.0, 0.5, 8.0],
+                                   [-1.0, 0.2, 6.0]]]),
+                    cam, lm, torch.full((1, 6, 3), 600.0), w,
+                    torch.tensor([718.856, 718.856, 607.1928, 185.2157,
+                                  0.5372]),
+                    ba._slot_table(cam, lm, w, 2, 3), torch.full((1,), 1e-4))
     assert ck.PLAIN_CALLS == dict.fromkeys(ck.KERNELS, 1)
     assert ck.LAUNCHES == dict.fromkeys(ck.KERNELS, 0)
 
