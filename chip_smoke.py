@@ -75,7 +75,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      scene (157 m, 8000 landmarks) on the card, with B1, B2, B6 and B7
      launched (B6 once per LM iteration of BA and of loop closure, by
      shape; B7 once per LM iteration and once per covariance system), no
-     plain version run and every stage's ATE under 1 m; B6's time on the
+     plain version run and every stage's ATE under 1 m, and the clock
+     stamp (csrc/stamp.cu) launched three times per replay of the
+     frontend chunk's graph; B6's time on the
      path from its launches and phase 2d's times. The path
      runs from CUDA graphs (runtime.graphs): drive_path warms it until a
      pass captures no new graph, times a pass, then counts the launches
@@ -265,6 +267,17 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      beside the 64-node bucket (wall, device busy); and the window
      batch's and the pair's rel_cov against a float64 inverse of the
      same S, within COV_TOL;
+  4p. the frontend chunk's clock stamps (`[stamp]` lines), all graphs
+     freed first: for each of the benchmark's configurations
+     (slambench/configs: kitti00_harris, kitti00_akaze, kitti00_sift),
+     its chunk (32 frames of the scene at 376x1241, its K) with a carry
+     through frontend._chunk's graph, warmed up and captured, then
+     STAMP_RUNS replays, each between two CUDA events: in every replay
+     the three stamps rise, three stamp launches per replay, and the
+     median of the stamps' span (features + motion) within 10 % of the
+     median event time (a clock has no plain version on the same
+     inputs: the events are its counterpart); the features' share of
+     the span printed;
   5. with --profile DIR: one more warm run of the main path, and one
      each of the AKAZE, the SIFT and the ORB path, under torch.profiler;
      wall time, device busy time (union of the device events' intervals)
@@ -1044,7 +1057,8 @@ TRACE_NAMES = {"detect_maps": "maps_kernel<true, true>",
                "akaze_octave": "akaze_octave_kernel<",
                "mutual_nearest": "mutual_kernel<",
                "cholesky_solve": "cholesky_solve_kernel<",
-               "schur_reduce": "schur_poses_kernel"}
+               "schur_reduce": "schur_poses_kernel",
+               "stamp": "stamp_kernel"}
 
 
 # host seconds of idle trace before the lead call and after the last
@@ -3325,6 +3339,80 @@ def graphs_phase(pipeline, ck, graphs, L, R, scene, cfg, card) -> None:
         f"({card})")
 
 
+# the benchmark's configurations (slambench/configs), each at its own K,
+# and the replays of each one's chunk graph that phase 4p times
+BENCH_CONFIGS = ("kitti00_harris", "kitti00_akaze", "kitti00_sift")
+STAMP_RUNS = 5
+
+
+def bench_config(name: str):
+    """The port's SlamConfig of one benchmark configuration file."""
+    from slam_tpu_torch.config import SlamConfig
+
+    spec = json.loads((Path(__file__).resolve().parent / "slambench"
+                       / "configs" / f"{name}.json").read_text())
+    return SlamConfig.from_json(json.dumps(spec["settings"]))
+
+
+def stamp_phase(ck, frontend, graphs, L, R, scene, card) -> None:
+    """Phase 4p (module docstring): the frontend chunk's clock stamps in
+    its replayed graph against CUDA events, at each benchmark
+    configuration's chunk."""
+    from slam_tpu_torch.ops import ransac as ransac_ops
+
+    calib_t = torch.tensor(scene.calib, device="cuda")
+    for name in BENCH_CONFIGS:
+        graphs.clear()
+        cfg = bench_config(name)
+        n, fc = cfg.runtime.chunk_frames, cfg.features
+        c0, c1 = (tuple(torch.from_numpy(np.ascontiguousarray(
+            x[i * n:(i + 1) * n])).cuda() for x in (L, R)) for i in (0, 1))
+        u = ransac_ops.hypothesis_uniforms(
+            n, fc.max_kp, cfg.ransac.num_hypotheses,
+            torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+        _, carry, _ = frontend._chunk(*c0, None, calib_t, u, cfg)
+        args = (*c1, carry, calib_t, u, cfg)
+        for _ in range(2):  # the warm-up, then the capture
+            frontend._chunk(*args)
+        torch.cuda.synchronize()
+        ck.reset_counters()
+        replays = frontend._chunk.replays
+        spans, feats, events = [], [], []
+        for _ in range(STAMP_RUNS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            st = frontend._chunk(*args)[2]
+            ev[1].record()
+            torch.cuda.synchronize()
+            st = st.cpu()
+            if not bool((st[1:] > st[:-1]).all()):
+                fail(f"stamp {name}: the stamps {st.tolist()} do not rise "
+                     f"within a replay")
+            spans.append(int(st[2] - st[0]))
+            feats.append(int(st[1] - st[0]))
+            events.append(ev[0].elapsed_time(ev[1]) * 1e6)
+        replays = frontend._chunk.replays - replays
+        if replays != STAMP_RUNS or ck.LAUNCHES["stamp"] != 3 * replays:
+            fail(f"stamp {name}: {ck.LAUNCHES['stamp']} stamps in "
+                 f"{replays} replays of {STAMP_RUNS} calls (want 3 each)")
+        span_ms = float(np.median(spans)) * 1e-6
+        event_ms = float(np.median(events)) * 1e-6
+        log(f"[stamp] {name} chunk ({n} frames {HW}, K {fc.max_kp}, "
+            f"{fc.detector}) median of {STAMP_RUNS} replays: stamps "
+            f"{span_ms:.3f} ms (features "
+            f"{float(np.median(feats)) * 1e-6:.3f} ms, "
+            f"{100.0 * np.median(feats) / np.median(spans):.1f} %), "
+            f"CUDA events {event_ms:.3f} ms, stamps / events "
+            f"{span_ms / event_ms:.4f} (limit 0.9-1.1); launches "
+            f"{ck.LAUNCHES['stamp']} ({card})")
+        if not abs(span_ms - event_ms) <= 0.1 * event_ms:
+            fail(f"stamp {name}: the stamps' span {spans} ns against CUDA "
+                 f"events {events} ns (limit 10 % of the events)")
+        del c0, c1, u, carry, args
+    graphs.clear()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3698,9 +3786,12 @@ def main(argv=None) -> int:
         covs["systems"] += 1
         return cov_system(*a, **kw)
 
+    chunk_replays = [0]
+
     def reset_counts():
         solves.clear()
         covs.clear()
+        chunk_replays[0] = frontend._chunk.replays
 
     graphs.clear()
     ba._spd_solve = counting
@@ -3728,6 +3819,15 @@ def main(argv=None) -> int:
     log(f"[B7] main path: {b7_launches} launches, one per LM iteration "
         f"({b6_launches}) and per covariance system ({covs['systems']}) "
         f"({card})")
+    # the launches of the last counted pass (the traced one: equal to the
+    # measured pass's) against its chunk graph's replays
+    n_chunks = frontend._chunk.replays - chunk_replays[0]
+    stamps = main_path["launches"]["stamp"]
+    if n_chunks == 0 or stamps != 3 * n_chunks:
+        fail(f"path: {stamps} clock stamps for {n_chunks} replays of the "
+             f"frontend chunk's graph (want 3 per replay)")
+    log(f"[stamp] main path: {stamps} launches, 3 per replay of the "
+        f"frontend chunk's graph ({n_chunks}) ({card})")
     # B6's time on the path: each shape's launches at phase 2d's times
     for shape in solves:
         if shape not in b6_at:
@@ -3900,6 +4000,9 @@ def main(argv=None) -> int:
 
     # ---- 4o. the CUDA graphs ------------------------------------------------
     graphs_phase(pipeline, ck, graphs, L, R, scene, cfg, card)
+
+    # ---- 4p. the frontend chunk's clock stamps ------------------------------
+    stamp_phase(ck, frontend, graphs, L, R, scene, card)
 
     # ---- 5. profile (optional) ---------------------------------------------
     if args.profile:

@@ -8,8 +8,11 @@ object: ``result``, the run's result line (with ``--trace 1`` its
 per-layer metrics and ``breakdown.idle_gaps``); ``sequences``, the
 window's sequences; ``seconds`` and ``entries``, each span key's mean
 per sequence; ``self_s``, each key's mean seconds less its direct
-children's (what no span below it covers); ``graphs``, the CUDA graphs'
-counts summed over the window.
+children's that the host's clock timed (what no span below it covers;
+a ``device:`` span is the card's time, beside the host's); ``graphs``,
+the CUDA graphs' counts summed over the window; ``keypoints``, the
+left images' kept keypoints per level or octave, summed over the
+window.
 
     python3 scripts/span_breakdown.py --workload harris.loop80 \\
         --seed 12345 --seconds 30 --trace 1 --out chiprun_out/spans.json
@@ -29,6 +32,7 @@ for p in (ROOT, ROOT / "slambench"):
     sys.path.insert(0, str(p))
 
 from harness import runner  # noqa: E402
+from slam_tpu_torch.utils.profiling import is_device_key  # noqa: E402
 
 
 def breakdown(kept: list) -> dict:
@@ -42,14 +46,19 @@ def breakdown(kept: list) -> dict:
     def parent(k):
         return k.rsplit(".", 1)[0] if "." in k else None
 
-    own = {k: v - sum(sec[c] for c in keys if parent(c) == k)
+    own = {k: v - sum(sec[c] for c in keys
+                      if parent(c) == k and not is_device_key(c))
            for k, v in sec.items()}
     graphs = {}
     for _, c in kept:
         for k, v in c["graphs"].items():
             graphs[k] = graphs.get(k, 0) + v
+    kps = [c["keypoints"] for _, c in kept if "keypoints" in c]
+    keypoints = {"left_images": sum(k["left_images"] for k in kps),
+                 "per_level": [sum(x) for x in zip(
+                     *(k["per_level"] for k in kps))]} if kps else {}
     return {"sequences": n, "seconds": sec, "entries": ent, "self_s": own,
-            "graphs": graphs}
+            "graphs": graphs, "keypoints": keypoints}
 
 
 def main(argv=None) -> int:

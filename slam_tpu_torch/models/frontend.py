@@ -50,7 +50,7 @@ from ..config import SlamConfig
 from ..ops import (akaze, binary, cuda_kernels, features, matching, orb,
                    ransac, sift, stereo)
 from ..runtime import graphs
-from ..utils.profiling import span
+from ..utils.profiling import add, span
 
 
 class DescriptorBank:
@@ -201,6 +201,34 @@ def _pair_correspondences(prev_links, prev_link_valid, cur_links,
     return pw, meas, valid
 
 
+def detector_levels(fc) -> int:
+    """The pyramid levels or octaves the detector of a FeatureConfig runs:
+    AKAZE at least 2, SIFT at least 3 and one more (num_levels counts the
+    octaves from full resolution down; + 1 is cv2's x2-upsampled '-1'
+    octave), ORB 1, Harris ``num_levels``."""
+    if fc.detector == "akaze":
+        return max(fc.num_levels, 2)
+    if fc.detector == "sift":
+        return max(fc.num_levels, 3) + 1
+    if fc.detector == "orb":
+        return 1
+    return fc.num_levels
+
+
+def keypoint_counts(valid: np.ndarray, fc) -> dict:
+    """The keypoints a sequence kept, from its (F, K) slot validity: the
+    left images counted and, per level or octave (a frame's K slots hold
+    them in turn, ``features.level_budgets``), the valid slots summed
+    over them; their ratio is the keypoints kept per left image at that
+    level."""
+    valid = np.asarray(valid, bool)
+    edges = np.cumsum([0] + features.level_budgets(fc.max_kp,
+                                                   detector_levels(fc)))
+    return {"left_images": int(valid.shape[0]),
+            "per_level": [int(valid[:, a:b].sum())
+                          for a, b in zip(edges[:-1], edges[1:])]}
+
+
 def _detect_describe(imgs: torch.Tensor, cfg: SlamConfig) -> dict:
     """Detection + description of a batch of (F, H, W) images (uint8 or
     float32 in [0, 1]) under ``cfg.features``, binarized under the
@@ -209,24 +237,23 @@ def _detect_describe(imgs: torch.Tensor, cfg: SlamConfig) -> dict:
         imgs = imgs.float() * (1.0 / 255.0)
     imgs = imgs.contiguous()
     fc = cfg.features
+    levels = detector_levels(fc)
     if fc.detector == "akaze":
         out = akaze.detect_and_describe_akaze_batch(
-            imgs, max_kp=fc.max_kp, octaves=max(fc.num_levels, 2),
+            imgs, max_kp=fc.max_kp, octaves=levels,
             threshold=fc.akaze_threshold)
     elif fc.detector == "sift":
-        # num_levels counts the octaves from full resolution down; + 1 is
-        # cv2's x2-upsampled '-1' octave
         out = sift.detect_and_describe_sift_batch(
-            imgs, max_kp=fc.max_kp, octaves=max(fc.num_levels, 3) + 1,
+            imgs, max_kp=fc.max_kp, octaves=levels,
             contrast=fc.sift_contrast)
     elif fc.detector == "orb":
         # already +-1/sqrt(D) bit signs: under the Hamming norm the
         # binarization below recovers the same bits (unless all are equal)
         out = orb.detect_and_describe_orb_batch(
             imgs, max_kp=fc.max_kp, threshold=fc.fast_threshold)
-    elif fc.num_levels > 1:
+    elif levels > 1:
         out = features.detect_and_describe_multiscale_batch(
-            imgs, max_kp=fc.max_kp, num_levels=fc.num_levels)
+            imgs, max_kp=fc.max_kp, num_levels=levels)
     else:
         out = features.detect_and_describe_batch(imgs, max_kp=fc.max_kp)
     if cfg.matching.norm == "hamming":
@@ -379,16 +406,21 @@ def chunk_poses(T_est: torch.Tensor, pose_ok: torch.Tensor,
 
 def process_chunk(chunk_left: torch.Tensor, chunk_right: torch.Tensor,
                   carry: dict | None, calib: torch.Tensor, cfg: SlamConfig,
-                  generator: torch.Generator | None = None):
+                  generator: torch.Generator | None = None,
+                  stamps: bool = False):
     """One chunk of frames on the device. Images (F, H, W) uint8 or float32
     in [0, 1]. With ``carry`` (the previous chunk's last frame) the first
     frame is also matched against it. RANSAC draws from ``generator``,
-    before the chunk's work. Returns (per-frame dict, new carry)."""
+    before the chunk's work. Returns (per-frame dict, new carry); with
+    ``stamps``, also the chunk's three clock stamps (``_chunk``), by which
+    ``run_frames`` times the chunk's parts."""
     F = chunk_left.shape[0]
     u = ransac.hypothesis_uniforms(F, cfg.features.max_kp,
                                    cfg.ransac.num_hypotheses, generator,
                                    chunk_left.device)
-    return _chunk(chunk_left, chunk_right, carry, calib, u, cfg)
+    out, new_carry, st = _chunk(chunk_left, chunk_right, carry, calib, u,
+                                cfg)
+    return (out, new_carry, st) if stamps else (out, new_carry)
 
 
 @graphs.graphed(static=("cfg",))
@@ -398,18 +430,24 @@ def _chunk(chunk_left: torch.Tensor, chunk_right: torch.Tensor,
     """``process_chunk`` on RANSAC's uniforms drawn beforehand: on the
     card one CUDA graph per chunk shape, the counterpart of the JAX
     package's jitted chunk (the first chunk, with no carry, under a key
-    of its own)."""
+    of its own). Returns (per-frame dict, new carry, stamps): three clock
+    stamps in ns (``cuda_kernels.stamp``, the card's clock inside the
+    graph), before the features, after them, and after the poses."""
+    stamps = torch.empty(3, dtype=torch.int64, device=chunk_left.device)
+    cuda_kernels.stamp(stamps, 0)
     feats = chunk_features(chunk_left, chunk_right, cfg)
+    cuda_kernels.stamp(stamps, 1)
     mot = _motion(feats, carry, calib, uniforms, cfg)
     T_rel, T_chain = chunk_poses(mot.pop("T_est"), mot["pose_ok"],
                                  None if carry is None else carry["last_T"])
+    cuda_kernels.stamp(stamps, 2)
     out = {"xy": feats["xy"], "desc": feats["desc"].half(),
            "valid": feats["valid"], "links": feats["links"],
            "link_valid": feats["link_valid"], "T_rel": T_rel,
            "T_chain": T_chain, **mot}
     new_carry = {k: feats[k][-1] for k in CARRY_KEYS}
     new_carry["last_T"] = T_rel[-1]
-    return out, new_carry
+    return out, new_carry, stamps
 
 
 def chunk_generator(cfg: SlamConfig, chunk_index: int,
@@ -646,7 +684,12 @@ def run_frames(frames, calib, cfg: SlamConfig, device,
     read-back into pinned memory and the event behind it), ``wait`` (the
     host blocked on an upload's or a chunk's event, or on the
     checkpoint's read of the carry), ``take_in`` (the chunk's host
-    outputs taken in, ``on_chunk``, the checkpoint) and ``assemble``."""
+    outputs taken in, ``on_chunk``, the checkpoint) and ``assemble``;
+    and, from the chunk's clock stamps read back with its outputs, the
+    device's time of each chunk: ``device:features`` (detection,
+    description and the stereo match) and ``device:motion`` (the
+    temporal match, RANSAC and the poses), added as each chunk is taken
+    in (``profiling.add``)."""
     device = cuda_kernels.resolve_device(device)
     cuda = device.type == "cuda"
     nF, chunk = frames.num, cfg.runtime.chunk_frames
@@ -706,10 +749,13 @@ def run_frames(frames, calib, cfg: SlamConfig, device,
 
     def materialize(pend) -> None:
         nonlocal T_carry, last_ckpt, seg_idx, seg_outs, seg_T
-        start_p, n_p, host, ready, carry_p, is_last = pend
+        start_p, n_p, host, stamps, ready, carry_p, is_last = pend
         if ready is not None:
             with span("wait"):
                 ready.synchronize()
+        t = stamps.numpy()
+        add("features", int(t[1] - t[0]))
+        add("motion", int(t[2] - t[1]))
         with span("take_in"):
             # copied off the pinned blocks, which return to the allocator
             o = {k: v.numpy().copy() for k, v in host.items()}
@@ -746,10 +792,12 @@ def run_frames(frames, calib, cfg: SlamConfig, device,
                     compute.wait_event(uploaded[i % 2])
                     bl.record_stream(compute)
                     br.record_stream(compute)
-                out, carry = process_chunk(
+                out, carry, stamps = process_chunk(
                     bl, br, carry, calib_t, cfg,
-                    generator=chunk_generator(cfg, start // chunk, device))
+                    generator=chunk_generator(cfg, start // chunk, device),
+                    stamps=True)
                 desc_chunks.append((start, n, out.pop("desc")[:n]))
+                stamps = stamps.to("cpu", non_blocking=True)
                 host = {k: v[:n].to("cpu", non_blocking=True)
                         for k, v in out.items()}
                 ready = None
@@ -760,7 +808,8 @@ def run_frames(frames, calib, cfg: SlamConfig, device,
                 nxt = upload(i + 1, starts[i + 1])
             if pending is not None:
                 materialize(pending)
-            pending = (start, n, host, ready, carry, i + 1 == len(starts))
+            pending = (start, n, host, stamps, ready, carry,
+                       i + 1 == len(starts))
         materialize(pending)
     finally:
         frames.end()

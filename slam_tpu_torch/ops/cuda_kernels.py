@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels, with their plain versions.
 
 Counterpart of ``slam_tpu/ops/pallas_kernels.py`` (B1-B6), plus B7, which
-has no TPU counterpart. Seven kernels:
+has no TPU counterpart, and a clock stamp. Seven kernels:
 
   B1 ``detect_maps``       Harris response, 5x5 NMS map and 8 orientation
                            cell maps in one pass (csrc/detect_maps.cu);
@@ -29,6 +29,9 @@ has no TPU counterpart. Seven kernels:
                            It replaces no TPU kernel: the JAX package
                            builds this system in plain jnp.
 
+and ``stamp``, the card's clock written into a slot of a buffer
+(csrc/stamp.cu): times inside a CUDA graph (the frontend's chunk).
+
 The JAX package's two thin wrappers over its B2 have their counterparts
 here and in ops/matching.py: ``nearest_neighbor`` below, and
 ``mutual_match_pallas``, whose counterpart is ``matching.mutual_match``
@@ -55,6 +58,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -65,7 +69,7 @@ BIG = 1e30
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(_PKG / "csrc" / n for n in (
     "detect_maps.cu", "mutual_nearest.cu", "akaze_octave.cu",
-    "cholesky_solve.cu", "schur_reduce.cu"))
+    "cholesky_solve.cu", "schur_reduce.cu", "stamp.cu"))
 HEADERS = (_PKG / "csrc" / "launch.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "slam_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -73,7 +77,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 KERNELS = ("detect_maps", "mutual_nearest", "orientation_maps",
            "harris_response", "akaze_octave", "cholesky_solve",
-           "schur_reduce")
+           "schur_reduce", "stamp")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 _lib = None
@@ -169,13 +173,14 @@ def build() -> ctypes.CDLL:
                                       i, p, p, p, p, p, p, p, i, p]
     lib.slam_schur_back.argtypes = [p, p, p, p, p, i, i, i, i, p, i, p]
     lib.slam_schur_max_poses.argtypes = []
+    lib.slam_stamp.argtypes = [p, i, i, p]
     for fn in (lib.slam_detect_maps, lib.slam_harris_response,
                lib.slam_orientation_maps, lib.slam_akaze_octave,
                lib.slam_akaze_max_steps, lib.slam_akaze_static_path,
                lib.slam_cholesky_solve,
                lib.slam_cholesky_max_n, lib.slam_mutual_nearest,
                lib.slam_schur_reduce, lib.slam_schur_back,
-               lib.slam_schur_max_poses):
+               lib.slam_schur_max_poses, lib.slam_stamp):
         fn.restype = i
     cholesky_max_n = lib.slam_cholesky_max_n()
     akaze_max_steps = lib.slam_akaze_max_steps()
@@ -658,3 +663,35 @@ def schur_back(dp, slot, cross, Hll_inv, g_l):
                               dp.device.index, _stream(dp))
     _check(err, "schur_back")
     return dl
+
+
+# ---------------------------------------------------------------------------
+# the clock stamp (csrc/stamp.cu)
+# ---------------------------------------------------------------------------
+
+def stamp_plain(buf: torch.Tensor, i: int) -> None:
+    """Plain version of ``stamp``: the host's ``time.perf_counter_ns()``
+    into ``buf[i]``."""
+    PLAIN_CALLS["stamp"] += 1
+    buf[i] = time.perf_counter_ns()
+
+
+def stamp(buf: torch.Tensor, i: int) -> None:
+    """Write the clock in nanoseconds into slot ``i`` of ``buf``, a 1-D
+    int64 tensor: on the card its global timer, from one thread launched
+    on the current stream (after the work queued before it, before the
+    work queued after it; no host read, so a CUDA graph can hold it); on
+    the CPU the host's ``perf_counter_ns``. Differences of two stamps of
+    one device are durations; stamps of two devices do not compare."""
+    _require(buf.dim() == 1 and buf.dtype == torch.int64,
+             "stamp: buf must be 1-D int64, got {} {}", buf.dtype,
+             tuple(buf.shape))
+    _require(0 <= i < buf.shape[0], "stamp: slot {} of {}", i, buf.shape[0])
+    dev = buf.device
+    if dev.type == "cpu":
+        return stamp_plain(buf, i)
+    _require(dev.type == "cuda", "stamp: unsupported device {}", dev)
+    lib = build()
+    _check(lib.slam_stamp(buf.data_ptr(), i, dev.index, _stream(buf)),
+           "stamp")
+    LAUNCHES["stamp"] += 1

@@ -72,7 +72,9 @@ class PipelineResult:
     timings: dict = field(default_factory=dict)
     calib: np.ndarray | None = None
     # "spans": entries per key of ``timings``; "graphs": this call's
-    # warm-ups, captures, replays and evictions of the CUDA graphs
+    # warm-ups, captures, replays and evictions of the CUDA graphs;
+    # "keypoints": the left images' kept keypoints per level or octave
+    # (``models.frontend.keypoint_counts``)
     counts: dict = field(default_factory=dict)
 
     @property
@@ -137,9 +139,12 @@ def run_pipeline(images_left, images_right, calib,
     ``frontend+bundles_overlapped``) and the spans inside it by dotted key
     (``frontend.wait``, ``loop_closure.gate``, ``bundles.graph:
     solve_windows``: ``utils.profiling``; none inside the overlapped
-    stage), ``counts`` their entries and the call's CUDA-graph counts.
-    Under ``torch.profiler`` every span is also a ``stage:<key>``
-    annotation on the profiler's timeline."""
+    stage; ``frontend.device:features`` and ``frontend.device:motion``
+    are the card's time inside the frontend's chunk graphs, from its
+    clock), ``counts`` their entries, the call's CUDA-graph counts and the
+    keypoints kept per level. Under ``torch.profiler`` every span the
+    host timed is also a ``stage:<key>`` annotation on the profiler's
+    timeline."""
     timer = StageTimer()
     before = graphs.totals()
     with timer.active():
@@ -149,7 +154,9 @@ def run_pipeline(images_left, images_right, calib,
     after = graphs.totals()
     res.timings = timer.report()
     res.counts = {"spans": dict(timer.counts),
-                  "graphs": {k: after[k] - before[k] for k in after}}
+                  "graphs": {k: after[k] - before[k] for k in after},
+                  "keypoints": frontend_mod.keypoint_counts(
+                      res.frontend.valid, cfg.features)}
     return res
 
 

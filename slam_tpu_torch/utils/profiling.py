@@ -4,7 +4,9 @@ Counterpart of ``slam_tpu/utils/profiling.py``:
 
   * :class:`StageTimer` - nested host-clock spans (seconds and entries
     per dotted key), the program's one span mechanism; :func:`span` opens
-    one on the timer active in this context (``run_pipeline``'s);
+    one on the timer active in this context (``run_pipeline``'s), and
+    :func:`add` records a duration the device's clock measured (a
+    ``device:`` span, :func:`is_device_key`);
   * :func:`device_trace` - a ``torch.profiler`` scope (host activity, and
     the card's when it is in use) that writes a Chrome trace into a
     directory;
@@ -33,6 +35,9 @@ if not logger.handlers:
 
 # a span's name on the profiler's timeline: STAGE + its dotted key
 STAGE = "stage:"
+# the last part of a span's key that the device's clock timed: DEVICE +
+# its name (StageTimer.add)
+DEVICE = "device:"
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar(
     "slam_tpu_torch_stage_timer", default=None)
 _NULL = contextlib.nullcontext()
@@ -88,6 +93,17 @@ class StageTimer:
             self.ns[key] += dt
             self.counts[key] += 1
 
+    def add(self, name: str, ns: int) -> None:
+        """One entry of ``ns`` nanoseconds measured by another clock (the
+        card's, ``ops.cuda_kernels.stamp``) under the spans open now, as
+        the span ``device:<name>``, with no host clock read and no
+        ``record_function``: its time runs beside the host's spans and is
+        no part of theirs (:func:`is_device_key`)."""
+        name = DEVICE + name
+        key = f"{self._stack[-1]}.{name}" if self._stack else name
+        self.ns[key] = self.ns.get(key, 0) + int(ns)
+        self.counts[key] = self.counts.get(key, 0) + 1
+
     def active(self):
         """Make this the timer that :func:`span` opens spans on, in this
         context, for the length of the block."""
@@ -125,6 +141,19 @@ def span(name: str):
     when a test calls a model or an op directly."""
     timer = _ACTIVE.get()
     return _NULL if timer is None else timer.span(name)
+
+
+def add(name: str, ns: int) -> None:
+    """``StageTimer.add`` on the active timer; a no-op with none."""
+    timer = _ACTIVE.get()
+    if timer is not None:
+        timer.add(name, ns)
+
+
+def is_device_key(key: str) -> bool:
+    """Whether a dotted key is a span of the device's clock
+    (``StageTimer.add``) rather than of the host's."""
+    return key.rsplit(".", 1)[-1].startswith(DEVICE)
 
 
 @contextlib.contextmanager

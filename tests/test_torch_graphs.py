@@ -553,22 +553,36 @@ def test_every_graphed_function_is_listed():
     assert all(graphed_calls()[n][0].name == n for n in GRAPHED)
 
 
+def timeless(f, result):
+    """A graphed call's result, less the frontend chunk's clock stamps
+    (``_chunk``'s third value: times, not outputs) once they are seen to
+    be three int64 stamps that do not fall."""
+    if f is not frontend._chunk:
+        return result
+    out, carry, st = result
+    assert st.dtype == torch.int64 and st.shape == (3,)
+    assert bool((st[1:] >= st[:-1]).all()), st
+    return out, carry
+
+
 @pytest.mark.parametrize("name", CASES)
 def test_graphed_function_equals_its_eager_body(stub, name):
     """On CPU tensors each graphed function returns its body's result bit
     for bit: eagerly, and through warm-up, capture and two replays of the
-    stub graph (the second on new inputs of the same shapes)."""
+    stub graph (the second on new inputs of the same shapes). The frontend
+    chunk's clock stamps are compared apart: they rise in every call."""
     f, args, kw = graphed_calls()[name]
-    want = f.fn(*args, **kw)
+    want = timeless(f, f.fn(*args, **kw))
     with graphs.eager():
-        assert_same(f(*args, **kw), want, "eager()")
+        assert_same(timeless(f, f(*args, **kw)), want, "eager()")
     for i in range(3):
-        assert_same(f(*args, **kw), want, f"call {i}")
+        assert_same(timeless(f, f(*args, **kw)), want, f"call {i}")
     assert (f.warmups, f.captures, f.replays) == (1, 1, 2)
     # new inputs of the same shapes go through the same graph
     args2 = [a.flip(0) if torch.is_tensor(a) and a.dim() > 1
              and a.shape[0] > 1 else a for a in args]
-    assert_same(f(*args2, **kw), f.fn(*args2, **kw), "new inputs")
+    assert_same(timeless(f, f(*args2, **kw)),
+                timeless(f, f.fn(*args2, **kw)), "new inputs")
     assert f.replays == 3
 
 
@@ -772,6 +786,7 @@ def test_no_captured_body_syncs_or_copies_to_the_host():
     assert cuda_kernels.schur_back in seen
     assert cuda_kernels.mutual_nearest in seen
     assert cuda_kernels.detect_maps in seen
+    assert cuda_kernels.stamp in seen  # the frontend chunk's clock
     # the covariances' inverse and the pose graph's bodies are walked too
     assert ba._marginals in seen and pg_ops._covariance_full in seen
     assert pg_ops.mahalanobis_batched in seen
@@ -898,6 +913,39 @@ def test_cuda_frontend_chunk_graph_matches_eager(cuda):
     got2 = run(l2, r2)
     with graphs.eager():
         assert_same(got2, run(l2, r2))
+
+
+@pytest.mark.cuda
+def test_cuda_chunk_stamps_time_the_replayed_graph(cuda):
+    """The frontend chunk's clock stamps (the card's global timer inside
+    its graph) rise within a replay, and their span, features plus
+    motion, is within 10 % of the replay's device time by CUDA events
+    around the call (median of five), at KITTI's image size, where the
+    chunk's work outweighs the copies into its static buffers and the
+    clones of its outputs that the events also hold."""
+    cfg = SlamConfig(runtime=RuntimeConfig(chunk_frames=8))
+    left, right = to(textures(8, H=376, W=1241), cuda)
+    calib = torch.from_numpy(CALIB).to(cuda)
+    u = torch.rand((8, cfg.ransac.num_hypotheses, cfg.features.max_kp),
+                   device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    args = (left, right, None, calib, u, cfg)
+    for _ in range(2):  # the warm-up, then the capture
+        frontend._chunk(*args)
+    spans, events = [], []
+    for _ in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        st = frontend._chunk(*args)[2]
+        ev[1].record()
+        torch.cuda.synchronize()
+        st = st.cpu()
+        assert bool((st[1:] > st[:-1]).all()), st
+        spans.append(int(st[2] - st[0]))
+        events.append(ev[0].elapsed_time(ev[1]) * 1e6)
+    assert frontend._chunk.replays >= 5
+    span_ns, event_ns = float(np.median(spans)), float(np.median(events))
+    assert abs(span_ns - event_ns) <= 0.1 * event_ns, (spans, events)
 
 
 @pytest.mark.cuda

@@ -618,8 +618,32 @@ def test_cpu_tensors_take_the_plain_versions():
                     torch.tensor([718.856, 718.856, 607.1928, 185.2157,
                                   0.5372]),
                     ba._slot_table(cam, lm, w, 2, 3), torch.full((1,), 1e-4))
+    ck.stamp(torch.zeros(2, dtype=torch.int64), 1)
     assert ck.PLAIN_CALLS == dict.fromkeys(ck.KERNELS, 1)
     assert ck.LAUNCHES == dict.fromkeys(ck.KERNELS, 0)
+
+
+def test_cpu_stamps_rise():
+    """The clock stamp on the CPU writes the host's perf_counter_ns into
+    its slot and leaves the others: stamps taken in turn do not fall."""
+    buf = torch.full((4,), -1, dtype=torch.int64)
+    for i in (0, 2, 3):
+        ck.stamp(buf, i)
+    assert buf[1] == -1
+    assert 0 < buf[0] <= buf[2] <= buf[3]
+
+
+BAD_STAMPS = {"dtype": (torch.zeros(3, dtype=torch.float64), 0),
+              "ndim": (torch.zeros((3, 1), dtype=torch.int64), 0),
+              "slot": (torch.zeros(3, dtype=torch.int64), 3),
+              "negative": (torch.zeros(3, dtype=torch.int64), -1)}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_STAMPS))
+def test_stamp_rejects(case):
+    buf, i = BAD_STAMPS[case]
+    with pytest.raises(ValueError, match="stamp"):
+        ck.stamp(buf, i)
 
 
 BAD_IMAGES = {"ndim": torch.zeros((4, 5)),
@@ -755,11 +779,12 @@ def test_cuda_detect_maps_matches_plain(cuda, shape):
                                    (2, 1, 65, 128), (1, 130, 3, 128),
                                    (2, 300, 200, 32), (2, 200, 300, 256),
                                    (2, 300, 200, 16), (3, 100, 700, 128),
-                                   (3, 700, 40, 64)])
+                                   (3, 700, 40, 64), (2, 2500, 2500, 128)])
 def test_cuda_mutual_nearest_matches_plain(cuda, window, sizes):
     """Distances within 1e-5, indices equal where not tied, for ragged
-    sizes (Ka or Kb below one tile of 128 rows or 64 columns) and
-    descriptor widths 16 to 256."""
+    sizes (Ka or Kb below one tile of 128 rows or 64 columns, and the
+    SIFT configuration's K = 2500, no multiple of a tile) and descriptor
+    widths 16 to 256."""
     a, b, va, vb, xa, xb = (t(x, device=cuda) for x in desc_sets(6, *sizes))
     rd, ri, cd, ci = ck.mutual_nearest(a, b, va, vb, xa, xb, window)
     rd_p, ri_p, cd_p, ci_p = ck.mutual_nearest_plain(a, b, va, vb, xa, xb,

@@ -152,16 +152,21 @@ def check_paired(out_t, out_j):
                                atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize("case", ["noise", "blobs", "rendered"])
+@pytest.mark.parametrize("case", ["noise", "blobs", "rendered",
+                                  "published"])
 def test_sift_batch_matches_jax(case, frames):
     """detect_and_describe_sift_batch against the JAX package's vmapped
     detector (check_paired's tolerances), on seeded noise, on the JAX SIFT
-    tests' blob image (with its upsampled and plain first octave) and on
-    a rendered stereo pair."""
+    tests' blob image (with its upsampled and plain first octave), on a
+    rendered stereo pair, and on that pair under the benchmark's
+    kitti00_sift settings (cv2's SIFT_create(2500): K = 2500, 5 octaves,
+    contrast 0.04 / 3)."""
     if case == "noise":
         imgs, kw = noise(4, 2, 80, 128), dict(max_kp=512, octaves=3)
     elif case == "blobs":
         imgs, kw = _blob_image()[None], dict(max_kp=1024, octaves=4)
+    elif case == "published":
+        imgs, kw = frames, dict(max_kp=2500, octaves=5, contrast=0.04 / 3)
     else:
         imgs, kw = frames, dict(max_kp=512, octaves=4)
     check_paired(sift.detect_and_describe_sift_batch(t(imgs), **kw),

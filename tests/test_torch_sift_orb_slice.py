@@ -1,5 +1,6 @@
 """The SIFT and the ORB + Hamming configurations as a whole: run_pipeline
-of both packages on one rendered loop scene per detector.
+of both packages on one rendered loop scene per detector; and loop
+verification at the SIFT benchmark configuration's K.
 
 The JAX package renders each scene (80 frames, ``trajectory="loop"``)
 and both packages get the same numpy images, under
@@ -11,7 +12,11 @@ and both packages get the same numpy images, under
   * ORB + Hamming at 240x640, K = 1024 (``test_torch_akaze_slice``'s
     size): at 160x320 FAST-9 finds too few corners to track (17 pose
     failures in 80 frames, and no closure under one of three RANSAC
-    seeds of the port).
+    seeds of the port);
+  * SIFT under the benchmark's kitti00_sift settings (cv2's
+    SIFT_create(2500): K = 2500, num_levels 4, so five octaves, contrast
+    0.04 / 3) at 160x320: ~110 s for the port's 80 frames here, ~50 s
+    for the JAX package's.
 
 Detection and matching are deterministic, so the frontends agree slot by
 slot; RANSAC's hypotheses are not (jax.random against a torch
@@ -27,7 +32,16 @@ and 2 against the JAX package:
     poses a median 5e-6 m from the JAX package's; ATE frontend 0.11-0.16
     m (JAX 0.16), bundles 0.14-3.89 m (JAX 3.54: on this scene a few BA
     windows go astray in either package), loop-closed 0.13-1.48 m (JAX
-    0.10); pose failures 2-4 (JAX 2).
+    0.10); pose failures 2-4 (JAX 2);
+  * SIFT at kitti00_sift's settings: closure (0, 79) with 419 inliers in
+    all four runs; frame poses a median 1.1-1.3 cm / 0.019-0.022 deg
+    from the JAX package's; ATE frontend 0.19-0.28 m (JAX 0.21), bundles
+    0.21-0.22 m (JAX 0.23), loop-closed 0.094-0.096 m (JAX 0.092); no
+    pose failure in either. At this contrast gate two extrema of one
+    cell can tie in response (equal within 1e-7) at another scale or
+    half a pixel apart, and the packages keep another of the two; in
+    one left frame the tie also moves one keypoint in or out and shifts
+    the slots after it (XY_SHARE).
 
 The bounds below are set from those measurements.
 """
@@ -40,10 +54,13 @@ import pytest
 import torch
 
 from slam_tpu import pipeline as jpipe
+from slam_tpu.models import loop_closure as jlc
 from slam_tpu.utils import synthetic as jsynth
 from slam_tpu_torch import pipeline
 from slam_tpu_torch.config import MatchConfig
+from slam_tpu_torch.models import loop_closure
 
+from tests.test_torch_graphs import verify_inputs
 from tests.test_torch_slice import CFG, jax_config, rot_deg
 
 torch.set_num_threads(2)
@@ -56,10 +73,22 @@ CONFIGS = {
         CFG, features=dataclasses.replace(CFG.features, max_kp=1024,
                                           detector="orb"),
         matching=MatchConfig(norm="hamming")), (240, 640)),
+    "sift_published": (dataclasses.replace(
+        CFG, features=dataclasses.replace(
+            CFG.features, detector="sift", max_kp=2500, num_levels=4,
+            sift_contrast=0.04 / 3)), (160, 320)),
 }
 # per detector: |frontend ATE - JAX's|, bundles and pose-graph ATE, the
 # loop-closed ATE (m), pose failures apart (module docstring)
-BOUNDS = {"sift": (0.25, 3.0, 1.0, 1), "orb": (0.1, 5.0, 2.0, 2)}
+BOUNDS = {"sift": (0.25, 3.0, 1.0, 1), "orb": (0.1, 5.0, 2.0, 2),
+          "sift_published": (0.25, 1.0, 0.5, 1)}
+# per detector: the share of the slots both frontends keep (linked, or
+# matched alike) on which keypoints and links agree within 1e-3 px and
+# L2 distances within 2e-3; all of them but where the packages break a
+# tie between two extrema otherwise (module docstring; at kitti00_sift's
+# settings measured 99.80 % of the keypoints, 99.95 % of the links and
+# 99.997 % of the distances)
+XY_SHARE = {"sift": 1.0, "orb": 1.0, "sift_published": 0.995}
 
 
 @pytest.fixture(scope="module", params=list(CONFIGS))
@@ -75,6 +104,16 @@ def runs(request):
     return request.param, cfg, np.asarray(scene.T_w2c), res_j, res_t
 
 
+def close(got, want, atol, share):
+    """Rows of ``got`` within ``atol`` of ``want``: all of them at a
+    share of 1, else at least ``share`` of them."""
+    if share == 1.0:
+        np.testing.assert_allclose(got, want, atol=atol)
+    else:
+        err = np.abs(got - want).reshape(len(got), -1).max(-1)
+        assert (err <= atol).mean() >= share, (err > atol).sum()
+
+
 def test_frontend_matches_agree(runs):
     """Before RANSAC the two frontends agree on every frame: keypoints
     within 1e-3 px, stereo links and temporal matches equal on >= 99.9%
@@ -83,15 +122,18 @@ def test_frontend_matches_agree(runs):
     near-tie may flip, one bit); under L2 within 1e-4 on >= 99% and 2e-3
     on all (the matcher rounds descriptors to bf16, and one that differs
     in its last float32 bits can round to the neighbouring bf16 value:
-    0.13% of the SIFT scene's matches, by up to 5.3e-4)."""
+    0.13% of the SIFT scene's matches, by up to 5.3e-4). Keypoints, links
+    and L2 distances on XY_SHARE of the slots (all, but at kitti00_sift's
+    settings, where the packages break ties between extrema otherwise)."""
     det, cfg, _, res_j, res_t = runs
     fj, ft = res_j.frontend, res_t.frontend
+    share = XY_SHARE[det]
     both = fj.valid & ft.valid
     assert (fj.valid == ft.valid).mean() >= 0.999
-    np.testing.assert_allclose(ft.xy[both], fj.xy[both], atol=1e-3)
+    close(ft.xy[both], fj.xy[both], 1e-3, share)
     assert (fj.link_valid == ft.link_valid).mean() >= 0.999
     linked = fj.link_valid & ft.link_valid
-    np.testing.assert_allclose(ft.links[linked], fj.links[linked], atol=1e-3)
+    close(ft.links[linked], fj.links[linked], 1e-3, share)
     assert (fj.match_prev == ft.match_prev).mean() >= 0.999
     same = (fj.match_prev == ft.match_prev) & (ft.match_prev >= 0)
     assert same.sum() > 100 * 79
@@ -102,7 +144,7 @@ def test_frontend_matches_agree(runs):
         assert np.abs(dt - dj).max() <= 2
     else:
         assert (np.abs(dt - dj) <= 1e-4).mean() >= 0.99
-        np.testing.assert_allclose(dt, dj, atol=2e-3)
+        close(dt, dj, 2e-3, share)
 
 
 def test_closes_the_same_loops(runs):
@@ -135,3 +177,31 @@ def test_trajectories_agree(runs):
     assert ev_t["pose_graph_lc_kf"]["ate_rmse_m"] < lc_max
     assert abs(ev_t["num_pose_failures"]
                - ev_j["num_pose_failures"]) <= d_fail
+
+
+@pytest.mark.parametrize("K", [512, 2500])
+def test_loop_verification_matches_jax(K):
+    """Loop verification of four (query, candidate) keyframe pairs at
+    (4, K, 128) float16, K = 2500 the SIFT configuration's budget (no
+    multiple of a tile), against the JAX package's _verify_candidates on
+    the same descriptors and links, one pair a call: matches, inlier
+    masks, counts and accept flags equal, and the poses within 1e-4
+    although RANSAC draws otherwise (measured: equal, poses 3.4e-6
+    apart)."""
+    args = verify_inputs(P=4, K=K, H=32)
+    got = {k: v.numpy() for k, v in
+           loop_closure._verify_candidates(*args).items()}
+    dq, vq, lq, lvq, dc, vc, lc, lvc, calib, uniforms, thr = args
+    for p in range(4):
+        one = [jax.numpy.asarray(x[p].numpy()) for x in (dq, vq, lq, lvq)]
+        cand = [jax.numpy.asarray(x[p:p + 1].numpy())
+                for x in (dc, vc, lc, lvc)]
+        want = jlc._verify_candidates(
+            jax.random.PRNGKey(p), *one, *cand,
+            jax.numpy.asarray(calib.numpy()), uniforms.shape[1], thr)
+        want = {k: np.asarray(v[0]) for k, v in want.items()}
+        assert (want["match_tgt"] >= 0).sum() > K // 2
+        for k in ("match_tgt", "inliers", "num_inliers", "ok"):
+            np.testing.assert_array_equal(got[k][p], want[k], err_msg=k)
+        np.testing.assert_allclose(got["T"][p], want["T"], atol=1e-4)
+        np.testing.assert_allclose(got["frac"][p], want["frac"], rtol=1e-6)

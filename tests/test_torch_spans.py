@@ -44,7 +44,9 @@ CFG = SlamConfig(
 STAGES = {"frontend", "trackstore", "bundles", "pose_graph", "loop_closure"}
 # the children every run on the CPU records (the events' waits are the
 # card's, and a CPU run blocks on none)
-CHILDREN = {"frontend.setup", "frontend.fill", "frontend.dispatch",
+DEVICE_SPANS = {"frontend.device:features", "frontend.device:motion"}
+CHILDREN = DEVICE_SPANS | {
+            "frontend.setup", "frontend.fill", "frontend.dispatch",
             "frontend.take_in", "frontend.assemble", "bundles.build",
             "bundles.upload",
             "bundles.take_in", "pose_graph.build", "pose_graph.optimize",
@@ -108,7 +110,8 @@ def profiled_run(scene):
 def test_stage_keys_children_and_seconds(stub_run):
     """The same top-level keys as the stages, the named children, every
     graphed call as a graph: span; each child's seconds at most its
-    parent's, and the direct children's sum too."""
+    parent's, and the direct children's sum too, of the spans the host's
+    clock timed (a device: span runs beside them)."""
     res, _, _ = stub_run
     t = res.timings
     assert {k for k in t if "." not in k} == STAGES
@@ -122,7 +125,8 @@ def test_stage_keys_children_and_seconds(stub_run):
         if parent(k) is not None:
             assert v <= t[parent(k)], k
     for k in t:
-        kids = [v for c, v in t.items() if parent(c) == k]
+        kids = [v for c, v in t.items()
+                if parent(c) == k and not profiling.is_device_key(c)]
         assert sum(kids) <= t[k] + 1e-9, k
 
 
@@ -140,6 +144,23 @@ def test_counts_match_the_run(stub_run):
     assert n["loop_closure.optimize"] == closures
     assert n["pose_graph.optimize"] == 1
     assert all(n[s] == 1 for s in STAGES)
+
+
+def test_device_clock_spans_once_a_chunk(stub_run):
+    """The frontend chunk's two device-clock spans (its stamps: on the
+    CPU the host's clock inside the body) once a chunk each, not
+    negative, neither a host key; the keypoint counts sum the frames'
+    valid slots."""
+    res, _, _ = stub_run
+    n, t = res.counts["spans"], res.timings
+    chunks = -(-FRAMES // CHUNK)
+    for k in DEVICE_SPANS:
+        assert n[k] == chunks, k
+        assert t[k] >= 0.0, k
+        assert profiling.is_device_key(k)
+    kp = res.counts["keypoints"]
+    assert kp == {"left_images": FRAMES,
+                  "per_level": [int(res.frontend.valid.sum())]}
 
 
 def test_counts_carry_the_graph_deltas(stub_run):
@@ -169,14 +190,17 @@ def test_no_profiler_no_annotation(stub_run):
 
 
 def test_profiler_sees_every_key_nested(profiled_run):
-    """Under torch.profiler every key is a stage:<key> annotation, as many
-    times as its entries, and each child's lies inside one of its
-    parent's."""
+    """Under torch.profiler every key the host's clock timed is a
+    stage:<key> annotation, as many times as its entries, and each
+    child's lies inside one of its parent's; a device: span is none."""
     res, spans = profiled_run
     names = [s[0] for s in spans]
-    assert {n[len(profiling.STAGE):] for n in names} == set(res.timings)
+    host = {k for k in res.timings if not profiling.is_device_key(k)}
+    assert host < set(res.timings)
+    assert {n[len(profiling.STAGE):] for n in names} == host
     for k, c in res.counts["spans"].items():
-        assert names.count(profiling.STAGE + k) == c, k
+        assert names.count(profiling.STAGE + k) == (
+            c if k in host else 0), k
     for name, a, b in spans:
         p = parent(name[len(profiling.STAGE):])
         if p is None:
@@ -208,6 +232,25 @@ def test_span_without_an_active_timer_is_a_no_op():
                             "stage.child.wait": 1, "child": 1}
     assert set(timer.report()) == set(timer.counts)
     assert timer.seconds("missing") == 0.0
+
+
+def test_add_records_another_clock_s_time_under_the_open_span():
+    """profiling.add outside run_pipeline records nothing; on an active
+    timer it sums nanoseconds and entries under the spans open, opens no
+    record_function, and leaves the open span's own time to the host."""
+    profiling.add("x", 5)
+    timer = profiling.StageTimer()
+    with timer.active():
+        with timer.span("stage"):
+            profiling.add("x", 2_000_000_000)
+            profiling.add("x", 1_000_000_000)
+        profiling.add("y", 7)
+    assert timer.counts == {"stage": 1, "stage.device:x": 2, "device:y": 1}
+    assert timer.ns["stage.device:x"] == 3_000_000_000
+    assert timer.seconds("stage") < 1.0
+    assert timer.report()["device:y"] == pytest.approx(7e-9)
+    assert [profiling.is_device_key(k) for k in timer.counts] == [
+        False, True, True]
 
 
 def test_span_records_when_the_block_raises():
