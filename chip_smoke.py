@@ -33,6 +33,17 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      kernel's compile-time path, every other count its run-time path: the
      log names the path); median times, and the wrapper's host
      microseconds per call at (1, 40, 60);
+  2f. kernel B8 (sift_octave) against its plain version at SIFT's five
+     octaves of the frontend chunk at sift.loop80's settings (contrast
+     0.04 / 3): the 64 rendered frames doubled and pre-blurred,
+     (64, 752, 2482), then each octave's next base, down to (64, 47,
+     156), by the card tests' rule (tests/sift_octave_check.py): the
+     next base within 2e-5, the NMS map equal to features.nms of the
+     kernel's own response, and no decision, response or interval value
+     different inside the outer 1-pixel frame away from the plain
+     version's decision margin; median times of the kernel and the plain
+     version, and the bound (roofline_pct.b8_sift_octave's bytes and
+     operations);
   2d. kernel B6 (cholesky_solve) against its plain version on the card:
      the real reduced pose systems of the scene's windows (frontend on the
      card, keyframes, build_windows + init_landmarks, the first depth
@@ -142,8 +153,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      >= 1 closure, every stage's ATE under 1 m; a second invocation loads
      every stage from its artifacts (no stage run, the same ATEs);
   4i. the SIFT path: run_pipeline + evaluate under SlamConfig(features=
-     FeatureConfig(detector="sift")) with drive_path's gates (B3, B2 and B6
-     launched, no plain version run, >= 1 closure, every ATE under 1 m;
+     FeatureConfig(detector="sift")) with drive_path's gates (B8, B3, B2
+     and B6 launched, no plain version run, >= 1 closure, every ATE under 1 m;
      `[path sift]` lines), then run_frontend once more for its peak device
      memory (one batch of 64 images through four octaves, the first at
      752x2482), and chunk 0's descriptors recomputed as DescriptorBank
@@ -326,6 +337,9 @@ PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12}
 # B1 both; B5 six PM-g2 steps of ~20, the Hessian and the NMS
 OPS_PER_PIXEL = {"harris_response": 100, "orientation_maps": 200,
                  "detect_maps": 300, "akaze_octave": 155}
+# B8: the five blurs' 134 multiply-adds a pixel (radii 4, 5, 6, 7, 9, both
+# passes) and the 5 DoG subtractions, what any implementation must do
+OPS_PER_PIXEL["sift_octave"] = 273
 
 
 def log(*a):
@@ -510,6 +524,69 @@ def check_b5(ck, imgs: torch.Tensor, k: torch.Tensor, sigma: float,
         f"err {L_err:.3e} (scale {L_scale:.3e}), resp err {r_err:.3e} (scale "
         f"{r_scale:.3e}), nms mismatches {n_mism}")
     return max(L_err, r_err), L_p
+
+
+def b8_bound(B: int, H: int, W: int, last: bool):
+    """The least time in ms of one B8 launch on (B, H, W) images, and
+    which bound it is: the base read, resp, nms and the interval map
+    written and, unless ``last``, the next base (ceil(H/2), ceil(W/2));
+    the blurs' multiply-adds and the DoG subtractions
+    (roofline_pct.b8_sift_octave's count)."""
+    px = B * H * W
+    n_bytes = 4 * px * 4 + (0 if last else 4 * B * ((H + 1) // 2)
+                            * ((W + 1) // 2))
+    return bound(n_bytes, OPS_PER_PIXEL["sift_octave"] * px)
+
+
+def check_b8(ck, level: torch.Tensor, contrast: float, last: bool,
+             label: str):
+    """Kernel B8 vs its plain version on one octave's base, by
+    tests/sift_octave_check.py's rule, which the card tests hold it to
+    too: the next base within 2e-5, the NMS map equal to features.nms of
+    the kernel's own response, and no decision, response or interval
+    value different at a pixel inside the outer 1-pixel frame away from
+    the plain version's decision margin. Returns (max abs resp err where
+    both respond, the plain version's next base)."""
+    if str(REPO / "tests") not in sys.path:
+        sys.path.insert(0, str(REPO / "tests"))
+    from sift_octave_check import compare
+
+    got = compare(level, ck.sift_octave(level, contrast, last=last),
+                  contrast, last=last)
+    if got["problems"]:
+        fail(f"B8 {label}: {'; '.join(got['problems'])}")
+    log(f"[B8] {label} {tuple(level.shape)}: {got['respond']} pixels "
+        f"respond, {got['near_differ']} differ at the margins, resp err "
+        f"{got['resp_err']:.3e}, next base err {got['next_err']:.3e}")
+    return got["resp_err"], got["next_plain"]
+
+
+def b8_phase(ck, sift, features, frames: torch.Tensor, card: str,
+             contrast: float = 0.04 / 3, octaves: int = 5):
+    """Phase 2f on a chunk's (2F, H, W) frames: returns (max resp err,
+    {shape: (kernel ms, plain ms, bound ms, bound by)})."""
+    pre = float((sift.SIGMA0 ** 2 - 1.0) ** 0.5)
+    level = features.gaussian_blur(sift.upsample2(frames), pre,
+                                   sift._blur_radius(pre)).contiguous()
+    err, times = 0.0, {}
+    for o in range(octaves):
+        last = o + 1 == octaves
+        e, nxt = check_b8(ck, level, contrast, last, f"octave {o}")
+        err = max(err, e)
+        t_k = median_ms(lambda: ck.sift_octave(level, contrast, last=last))
+        t_p = median_ms(lambda: ck.sift_octave_plain(level, contrast,
+                                                     last=last))
+        b_ms, b_by = b8_bound(*level.shape, last)
+        times[str(tuple(level.shape))] = (t_k, t_p, b_ms, b_by)
+        log(f"[B8] octave {o} {tuple(level.shape)} median of {TIMING_RUNS}: "
+            f"kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound {b_ms:.3f} ms "
+            f"({b_by}, {100 * b_ms / t_k:.1f} % of it) ({card})")
+        level = nxt
+    total = sum(t[0] for t in times.values())
+    log(f"[B8] a chunk's {octaves} octaves: kernel {total:.3f} ms, plain "
+        f"{sum(t[1] for t in times.values()):.3f} ms, bound "
+        f"{sum(t[2] for t in times.values()):.3f} ms ({card})")
+    return err, times
 
 
 def sift_octave_bases(sift, features, frames):
@@ -1058,6 +1135,7 @@ TRACE_NAMES = {"detect_maps": "maps_kernel<true, true>",
                "mutual_nearest": "mutual_kernel<",
                "cholesky_solve": "cholesky_solve_kernel<",
                "schur_reduce": "schur_poses_kernel",
+               "sift_octave": "sift_octave_kernel<",
                "stamp": "stamp_kernel"}
 
 
@@ -3587,7 +3665,14 @@ def main(argv=None) -> int:
     log(f"[B5] wrapper host time at {tuple(tiny.shape)}: "
         f"{host_us(lambda: ck.akaze_octave(tiny, k[:1], 6)):.2f} us per call "
         f"(mean of {HOST_CALLS} calls, no sync between) ({card})")
-    del path, oct0, oct1, L0
+    del oct0, oct1, L0
+
+    # ---- 2f. kernel B8 ------------------------------------------------------
+    # SIFT's five octaves of the frontend chunk at sift.loop80's settings
+    b8_err, b8_times = b8_phase(ck, sift, features, path, card)
+    first = next(iter(b8_times))
+    bounds["sift_octave"] = b8_times[first][2:]
+    del path
 
     # ---- 2d. kernel B6 ------------------------------------------------------
     # the reduced pose systems BA solves: the scene's own windows at LM's
@@ -3756,6 +3841,11 @@ def main(argv=None) -> int:
          "source": "slam_tpu_torch/csrc/schur_reduce.cu",
          "replaces": "no TPU kernel (plain jnp in slam_tpu/ops/ba.py)",
          "max_abs_err": b7_err, "ms": b7_ms, "plain_ms": b7_plain_ms},
+        {"name": "sift_octave", "route": "cuda",
+         "source": "slam_tpu_torch/csrc/sift_octave.cu",
+         "replaces": "no TPU kernel (plain jnp in slam_tpu/ops/sift.py)",
+         "max_abs_err": b8_err, "ms": b8_times[first][0],
+         "plain_ms": b8_times[first][1], "at_octaves": b8_times},
     ]
     for k in kernels:
         k["bound_ms"], k["bound_by"] = bounds[k["name"]]
@@ -3977,8 +4067,8 @@ def main(argv=None) -> int:
     cfg_sift = SlamConfig(features=FeatureConfig(detector="sift"))
     sift_path = detector_phase(
         pipeline, ck, frontend, L, R, scene, cfg_sift,
-        ("orientation_maps", "mutual_nearest", "cholesky_solve"), "path sift",
-        card)
+        ("sift_octave", "orientation_maps", "mutual_nearest",
+         "cholesky_solve"), "path sift", card)
     # ---- 4j. the ORB path ---------------------------------------------------
     cfg_orb = SlamConfig(features=FeatureConfig(detector="orb"),
                          matching=MatchConfig(norm="hamming"))
@@ -4023,7 +4113,8 @@ def main(argv=None) -> int:
     # per-image detect path, beside its launches in phase 2b
     counts = dict(main_path["launches"], orientation_maps=launches_akaze[
         "orientation_maps"], akaze_octave=launches_akaze["akaze_octave"],
-        harris_response=b4_detect)
+        harris_response=b4_detect,
+        sift_octave=sift_path["launches"]["sift_octave"])
     for k in kernels:
         k["launches"] = counts[k["name"]]
         if k["name"] == "harris_response":

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels, with their plain versions.
 
-Counterpart of ``slam_tpu/ops/pallas_kernels.py`` (B1-B6), plus B7, which
-has no TPU counterpart, and a clock stamp. Seven kernels:
+Counterpart of ``slam_tpu/ops/pallas_kernels.py`` (B1-B6), plus B7 and
+B8, which have no TPU counterpart, and a clock stamp. Eight kernels:
 
   B1 ``detect_maps``       Harris response, 5x5 NMS map and 8 orientation
                            cell maps in one pass (csrc/detect_maps.cu);
@@ -27,7 +27,14 @@ has no TPU counterpart, and a clock stamp. Seven kernels:
                            landmark steps (csrc/schur_reduce.cu); every
                            LM iteration and the covariances of ops/ba.py.
                            It replaces no TPU kernel: the JAX package
-                           builds this system in plain jnp.
+                           builds this system in plain jnp;
+  B8 ``sift_octave``       one SIFT octave's scale space: the Gaussian
+                           ladder, DoGs, 3x3x3 extremum, contrast and edge
+                           gates, response, 5x5 NMS, the continuous
+                           interval and the next octave's base in one pass
+                           (csrc/sift_octave.cu); every octave of
+                           ops/sift.py. It replaces no TPU kernel: the JAX
+                           package computes this in plain jnp.
 
 and ``stamp``, the card's clock written into a slot of a buffer
 (csrc/stamp.cu): times inside a CUDA graph (the frontend's chunk).
@@ -63,13 +70,13 @@ from pathlib import Path
 
 import torch
 
-from . import akaze, features
+from . import akaze, features, sift
 
 BIG = 1e30
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(_PKG / "csrc" / n for n in (
     "detect_maps.cu", "mutual_nearest.cu", "akaze_octave.cu",
-    "cholesky_solve.cu", "schur_reduce.cu", "stamp.cu"))
+    "cholesky_solve.cu", "schur_reduce.cu", "sift_octave.cu", "stamp.cu"))
 HEADERS = (_PKG / "csrc" / "launch.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "slam_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -77,7 +84,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 KERNELS = ("detect_maps", "mutual_nearest", "orientation_maps",
            "harris_response", "akaze_octave", "cholesky_solve",
-           "schur_reduce", "stamp")
+           "schur_reduce", "sift_octave", "stamp")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 _lib = None
@@ -173,6 +180,8 @@ def build() -> ctypes.CDLL:
                                       i, p, p, p, p, p, p, p, i, p]
     lib.slam_schur_back.argtypes = [p, p, p, p, p, i, i, i, i, p, i, p]
     lib.slam_schur_max_poses.argtypes = []
+    lib.slam_sift_octave.argtypes = [p, p, p, p, p, i, i, i, i, p, p, f, f,
+                                     i, p]
     lib.slam_stamp.argtypes = [p, i, i, p]
     for fn in (lib.slam_detect_maps, lib.slam_harris_response,
                lib.slam_orientation_maps, lib.slam_akaze_octave,
@@ -180,7 +189,8 @@ def build() -> ctypes.CDLL:
                lib.slam_cholesky_solve,
                lib.slam_cholesky_max_n, lib.slam_mutual_nearest,
                lib.slam_schur_reduce, lib.slam_schur_back,
-               lib.slam_schur_max_poses, lib.slam_stamp):
+               lib.slam_schur_max_poses, lib.slam_sift_octave,
+               lib.slam_stamp):
         fn.restype = i
     cholesky_max_n = lib.slam_cholesky_max_n()
     akaze_max_steps = lib.slam_akaze_max_steps()
@@ -663,6 +673,77 @@ def schur_back(dp, slot, cross, Hll_inv, g_l):
                               dp.device.index, _stream(dp))
     _check(err, "schur_back")
     return dl
+
+
+# ---------------------------------------------------------------------------
+# B8: one SIFT octave's scale space (csrc/sift_octave.cu)
+# ---------------------------------------------------------------------------
+
+def sift_octave_plain(level: torch.Tensor, contrast: float,
+                      intervals: int = sift.INTERVALS, last: bool = False):
+    """Plain version of B8: (resp, nms, s, next) = sift's ladder
+    (``gaussian_pyramid_octave``), its DoGs, ``_octave_response``,
+    ``features.nms``, the per-pixel interval ``_interval_map`` and, unless
+    ``last``, the next octave's base (else None)."""
+    PLAIN_CALLS["sift_octave"] += 1
+    gauss = sift.gaussian_pyramid_octave(level, intervals)
+    dogs = [b - a for a, b in zip(gauss[:-1], gauss[1:])]
+    resp, best_i = sift._octave_response(dogs, contrast)
+    # gauss[intervals] has sigma 2 sigma0: decimation alone keeps the
+    # ladder exact (sigma0 at half resolution)
+    nxt = None if last else gauss[intervals][..., ::2, ::2].contiguous()
+    return (resp, features.nms(resp), sift._interval_map(dogs, best_i),
+            nxt)
+
+
+@functools.lru_cache(maxsize=None)
+def _sift_ladder(intervals: int):
+    """The ladder of ``intervals`` as B8 takes it: the blur count, their
+    radii (C int[]) and their float32 taps in turn (C float[]; both keep
+    their arrays alive), the taps the plain version blurs with. Built
+    once per interval count."""
+    ladder = sift.blur_ladder(intervals)
+    radii = [r for _, r in ladder]
+    taps = [v for sig, r in ladder
+            for v in features.gaussian_kernel1d(sig, r).tolist()]
+    return (len(ladder),
+            ctypes.cast((ctypes.c_int * len(radii))(*radii), ctypes.c_void_p),
+            ctypes.cast((ctypes.c_float * len(taps))(*taps), ctypes.c_void_p))
+
+
+def sift_octave(level: torch.Tensor, contrast: float,
+                intervals: int = sift.INTERVALS, last: bool = False):
+    """Kernel B8: one SIFT octave from its (F, H, W) float32 base level
+    (csrc/sift_octave.cu). Returns resp, nms and s, each (F, H, W)
+    float32 (the octave's response, its 5x5 NMS map and every pixel's
+    continuous interval), and the next octave's base, (F, ceil(H/2),
+    ceil(W/2)) float32, or None when ``last``. B8's extremum and edge
+    tests read the DoG outside the image as 0 where the plain version
+    reads -inf and wraps: resp differs only on the image's outer 1-pixel
+    frame and nms within 3 pixels of the edge. Raises ValueError for a
+    ladder the kernel does not take (intervals 2 to 5). Besides the launch
+    it makes no ctypes call after the first at an interval count."""
+    if not _check_images(level, "sift_octave"):
+        return sift_octave_plain(level, contrast, intervals, last)
+    F, H, W = level.shape
+    lib = build()
+    _require(2 <= intervals <= 5, "sift_octave: intervals={} is outside "
+             "the ladders B8 takes (2 to 5)", intervals)
+    nb, radii, taps = _sift_ladder(intervals)
+    resp = torch.empty_like(level)
+    nms = torch.empty_like(level)
+    s = torch.empty_like(level)
+    nxt = None if last else torch.empty(
+        (F, (H + 1) // 2, (W + 1) // 2), dtype=level.dtype,
+        device=level.device)
+    err = lib.slam_sift_octave(
+        level.data_ptr(), resp.data_ptr(), nms.data_ptr(), s.data_ptr(),
+        None if last else nxt.data_ptr(), F, H, W, nb, radii, taps,
+        float(contrast), (sift.EDGE_R + 1.0) ** 2 / sift.EDGE_R,
+        level.device.index, _stream(level))
+    _check(err, "sift_octave")
+    LAUNCHES["sift_octave"] += 1
+    return resp, nms, s, nxt
 
 
 # ---------------------------------------------------------------------------

@@ -11,10 +11,16 @@ octave's base Gaussian image. The first octave is cv2's '-1' octave: the
 image doubled bilinearly. Octaves after the first decimate
 ``gauss[intervals]`` (sigma = 2 sigma0) by 2, with no extra blur.
 
-On the card each octave's descriptor maps come from kernel B3
-(``cuda_kernels.orientation_maps``), on the whole batch; everything else
-is torch ops over (F, H, W) images. Differences wrap at the image edge
-(``torch.roll`` for ``jnp.roll``), window maxima read -inf outside it.
+Each octave's scale space (the Gaussian ladder, the DoGs, the extremum,
+contrast and edge gates, the response, its NMS map, the per-pixel
+continuous interval and the next octave's base) is one call of
+``cuda_kernels.sift_octave``: kernel B8 on the card, on the whole batch;
+its plain version on the CPU, which is the functions below. The edge
+test's differences wrap at the image edge (``torch.roll`` for
+``jnp.roll``), window maxima read -inf outside it (B8 reads 0 in both, on
+a frame that no later stage reads). Each octave's descriptor maps come
+from kernel B3 (``cuda_kernels.orientation_maps``); keypoint selection
+and description are torch ops over (F, H, W) images.
 
 Images are (F, H, W) float32 in [0, 1].
 """
@@ -47,20 +53,28 @@ def upsample2(imgs: torch.Tensor) -> torch.Tensor:
                           antialias=False)[:, 0]
 
 
-def gaussian_pyramid_octave(imgs: torch.Tensor, intervals: int = INTERVALS,
-                            sigma0: float = SIGMA0) -> list:
-    """The ``intervals + 3`` Gaussian images of one octave: level i has
-    total sigma ``sigma0 * 2^(i / intervals)``, each blur applying only the
-    increment over the level before."""
+def blur_ladder(intervals: int = INTERVALS, sigma0: float = SIGMA0) -> list:
+    """(sigma, radius) of the ``intervals + 2`` incremental blurs of an
+    octave: level i has total sigma ``sigma0 * 2^(i / intervals)``, each
+    blur applying only the increment over the level before."""
     k = 2.0 ** (1.0 / intervals)
-    levels = [imgs]
+    out = []
     sig_prev = sigma0
     for _ in range(intervals + 2):
         sig_next = sig_prev * k
         sig_inc = float((sig_next ** 2 - sig_prev ** 2) ** 0.5)
-        levels.append(features.gaussian_blur(levels[-1], sig_inc,
-                                             _blur_radius(sig_inc)))
+        out.append((sig_inc, _blur_radius(sig_inc)))
         sig_prev = sig_next
+    return out
+
+
+def gaussian_pyramid_octave(imgs: torch.Tensor, intervals: int = INTERVALS,
+                            sigma0: float = SIGMA0) -> list:
+    """The ``intervals + 3`` Gaussian images of one octave
+    (:func:`blur_ladder`)."""
+    levels = [imgs]
+    for sig_inc, radius in blur_ladder(intervals, sigma0):
+        levels.append(features.gaussian_blur(levels[-1], sig_inc, radius))
     return levels
 
 
@@ -114,32 +128,34 @@ def _octave_response(dogs: list, contrast: float):
     return torch.where(torch.isfinite(resp), resp, 0.0), best_i
 
 
-def _scale_of(dogs: list, best_i, xy, o_eff: int, intervals: int):
-    """Continuous sigma (level-0 px) of the selected keypoints: the
-    winning interval plus a parabola through the DoG along the scale
-    axis, clipped to half an interval."""
-    Fb, H, W = dogs[0].shape
-    xi = torch.clamp(torch.round(xy[..., 0]).long(), 0, W - 1)
-    yi = torch.clamp(torch.round(xy[..., 1]).long(), 0, H - 1)
-    pix = yi * W + xi                                           # (F, K)
-    ii = torch.gather(best_i.reshape(Fb, H * W), 1, pix)
-    # every DoG level at the keypoints (F, levels, K), then by level
-    vals = torch.stack([torch.gather(d.reshape(Fb, H * W), 1, pix)
-                        for d in dogs], dim=1)
-
-    def at(level):
-        return torch.gather(vals, 1, level[:, None])[:, 0]
-
-    d_c = at(ii)
-    d_p = at(torch.clamp(ii - 1, min=0))
-    d_n = at(torch.clamp(ii + 1, max=len(dogs) - 1))
+def _interval_map(dogs: list, best_i) -> torch.Tensor:
+    """(F, H, W) continuous interval of every pixel: the winning interval
+    plus a parabola through the DoG along the scale axis, clipped to half
+    an interval. ``best_i`` is 0 (no interval passes: the DoGs at the
+    clamped levels 0, 0 and 1) or an interval 1..len(dogs) - 2, so the
+    three DoGs are picked level by level, with no stacked copy."""
+    d_p, d_c, d_n = dogs[0], dogs[0], dogs[1]
+    for i in range(1, len(dogs) - 1):
+        at_i = best_i == i
+        d_p = torch.where(at_i, dogs[i - 1], d_p)
+        d_c = torch.where(at_i, dogs[i], d_c)
+        d_n = torch.where(at_i, dogs[i + 1], d_n)
     denom = d_n - 2.0 * d_c + d_p
     ok = torch.abs(denom) > 1e-12
     di = torch.where(ok, -0.5 * (d_n - d_p) / torch.where(
         ok, denom, torch.ones_like(denom)), torch.zeros_like(denom))
     di = torch.clamp(di, -0.5, 0.5)
-    return SIGMA0 * torch.pow(2.0, o_eff + (ii.float() + di) / float(
-        intervals))
+    return best_i.float() + di
+
+
+def _scale_of(s: torch.Tensor, xy, o_eff: int, intervals: int):
+    """Continuous sigma (level-0 px) of the selected keypoints: the
+    octave's interval map ``s`` at their rounded pixels."""
+    Fb, H, W = s.shape
+    xi = torch.clamp(torch.round(xy[..., 0]).long(), 0, W - 1)
+    yi = torch.clamp(torch.round(xy[..., 1]).long(), 0, H - 1)
+    sv = torch.gather(s.reshape(Fb, H * W), 1, yi * W + xi)     # (F, K)
+    return SIGMA0 * torch.pow(2.0, o_eff + sv / float(intervals))
 
 
 def detect_and_describe_sift_batch(imgs: torch.Tensor,
@@ -149,11 +165,11 @@ def detect_and_describe_sift_batch(imgs: torch.Tensor,
                                    contrast: float = 0.015,
                                    upsample: bool = True) -> dict:
     """DoG detection + description over (F, H, W) images, the whole batch
-    at once: kernel B3 once per octave. Returns xy (level-0 px), desc,
-    valid, resp and ``scale`` (continuous sigma in level-0 px, 0 on
+    at once: kernels B8 and B3 once per octave. Returns xy (level-0 px),
+    desc, valid, resp and ``scale`` (continuous sigma in level-0 px, 0 on
     invalid slots), each (F, max_kp, ...), the first octave's slots
     first."""
-    from .cuda_kernels import orientation_maps
+    from .cuda_kernels import orientation_maps, sift_octave
 
     if upsample:
         # the doubled image carries sigma ~1.0 (2 x the camera's ~0.5)
@@ -162,30 +178,25 @@ def detect_and_describe_sift_batch(imgs: torch.Tensor,
     else:
         level = imgs
         pre = float((SIGMA0 ** 2 - 0.5 ** 2) ** 0.5)
-    level = features.gaussian_blur(level, pre, _blur_radius(pre))
+    level = features.gaussian_blur(level, pre, _blur_radius(pre)).contiguous()
     out = {key: [] for key in ("xy", "desc", "valid", "resp", "scale")}
     budgets = features.level_budgets(max_kp, octaves)
     for o, k in enumerate(budgets):
-        gauss = gaussian_pyramid_octave(level, intervals)
-        dogs = [b - a for a, b in zip(gauss[:-1], gauss[1:])]
-        resp, best_i = _octave_response(dogs, contrast)
+        resp, resp_nms, s, nxt = sift_octave(level, contrast, intervals,
+                                             last=o + 1 == octaves)
         det = features.select_keypoints(
-            resp, features.nms(resp), k, cell=16,
+            resp, resp_nms, k, cell=16,
             border=features.level_border(o), min_response=contrast * 0.5)
         o_eff = o - 1 if upsample else o
-        sigma = _scale_of(dogs, best_i, det["xy"], o_eff, intervals)
+        sigma = _scale_of(s, det["xy"], o_eff, intervals)
         desc = features.describe(det["xy"], det["valid"],
-                                 orientation_maps(gauss[0].contiguous()))
+                                 orientation_maps(level))
         out["xy"].append(det["xy"] * float(2.0 ** o_eff))
         out["desc"].append(desc)
         out["valid"].append(det["valid"])
         out["resp"].append(det["resp"])
         out["scale"].append(torch.where(det["valid"], sigma, 0.0))
-        if o + 1 < octaves:
-            # gauss[intervals] has sigma 2 sigma0: decimation alone keeps
-            # the ladder exact (sigma0 at half resolution)
-            level = gauss[intervals][..., ::2, ::2].contiguous()
-        del gauss, dogs
+        level = nxt
     return {key: torch.cat(parts, dim=1) for key, parts in out.items()}
 
 

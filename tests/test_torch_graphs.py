@@ -915,6 +915,72 @@ def test_cuda_frontend_chunk_graph_matches_eager(cuda):
         assert_same(got2, run(l2, r2))
 
 
+# the SIFT frontend's chunk: 4 octaves (num_levels 3 + the x2 one)
+SIFT_CFG = SlamConfig(features=FeatureConfig(detector="sift", max_kp=1024,
+                                             num_levels=3),
+                      ransac=RansacConfig(num_hypotheses=16),
+                      runtime=RuntimeConfig(chunk_frames=4))
+
+
+def sift_chunk_args(device, H=96, W=128):
+    left, right = to(textures(4, H=H, W=W), device)
+    u = torch.rand((4, SIFT_CFG.ransac.num_hypotheses,
+                    SIFT_CFG.features.max_kp), device=device,
+                   generator=torch.Generator(device).manual_seed(0))
+    return (left, right, None, torch.from_numpy(CALIB).to(device), u,
+            SIFT_CFG)
+
+
+def test_sift_chunk_replay_counts_b8_per_octave(stub):
+    """Every call of the SIFT frontend chunk's graph (warm-up, capture,
+    replays) counts one B8 call per octave (the plain version's here)."""
+    args = sift_chunk_args(torch.device("cpu"))
+    octaves = frontend.detector_levels(SIFT_CFG.features)
+    assert octaves == 4
+    counts = []
+    for _ in range(4):
+        frontend._chunk(*args)
+        counts.append(cuda_kernels.PLAIN_CALLS["sift_octave"])
+    assert counts == [octaves, 2 * octaves, 3 * octaves, 4 * octaves]
+    assert frontend._chunk.replays >= 2
+
+
+@pytest.mark.cuda
+def test_cuda_sift_chunk_graph_launches_b8_per_octave(cuda):
+    """A replay of the SIFT frontend chunk's graph launches B8 once per
+    octave: the launch counter and a trace's launches of B8's device
+    function (between two marker kernels, after a lead replay) agree."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    args = sift_chunk_args(cuda, H=120, W=400)
+    octaves = frontend.detector_levels(SIFT_CFG.features)
+    for _ in range(2):  # the warm-up, then the capture
+        frontend._chunk(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.2)
+        frontend._chunk(*args)
+        torch.cuda.synchronize()
+        cuda_kernels.reset_counters()
+        torch.cuda._sleep(1000)
+        frontend._chunk(*args)
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.2)
+    assert frontend._chunk.replays >= 2
+    assert cuda_kernels.LAUNCHES["sift_octave"] == octaves
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    marks = sorted(e.time_range.start for e in dev if "spin_kernel" in e.name)
+    assert len(marks) == 2
+    traced = [e for e in dev if marks[0] < e.time_range.start < marks[1]
+              and "sift_octave_kernel<" in e.name]
+    assert len(traced) == octaves
+
+
 @pytest.mark.cuda
 def test_cuda_chunk_stamps_time_the_replayed_graph(cuda):
     """The frontend chunk's clock stamps (the card's global timer inside

@@ -619,6 +619,7 @@ def test_cpu_tensors_take_the_plain_versions():
                                   0.5372]),
                     ba._slot_table(cam, lm, w, 2, 3), torch.full((1,), 1e-4))
     ck.stamp(torch.zeros(2, dtype=torch.int64), 1)
+    ck.sift_octave(x, 0.01)
     assert ck.PLAIN_CALLS == dict.fromkeys(ck.KERNELS, 1)
     assert ck.LAUNCHES == dict.fromkeys(ck.KERNELS, 0)
 
