@@ -1,7 +1,8 @@
 """Where the window BA's rel_T of the stage overlap over gloo ranks
-departs from the one-process overlap's (chip_smoke.py phase 4m (e)).
+departs from the one-process overlap's
+(tests/test_torch_card_modes.py::test_cuda_gloo_ranks_overlap).
 
-Runs the 80-frame smoke scene (phase 4's, ``SlamConfig()``) through
+Runs the card tests' 80-frame loop scene (``SlamConfig()``) through
 ``run_pipeline(mesh=..., overlap=True)``: in one process on a 2-shard
 mesh, op by op (``graphs.eager()``) and graphed, and over 2 gloo ranks
 sharing the card (each rank's cold and warm run). Every run records the
@@ -32,8 +33,9 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tests"))
 
-import chip_smoke as cs  # noqa: E402
+from card_checks import HW, RANKS_JOIN_S, SEED  # noqa: E402
 from slam_tpu_torch import pipeline  # noqa: E402
 from slam_tpu_torch.config import SlamConfig  # noqa: E402
 from slam_tpu_torch.models import bundle as bundle_mod  # noqa: E402
@@ -96,7 +98,7 @@ def main() -> int:
     ap.add_argument("--rank-spawns", type=int, default=3)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--frames", type=int, default=80)
-    ap.add_argument("--hw", type=int, nargs=2, default=cs.HW)
+    ap.add_argument("--hw", type=int, nargs=2, default=HW)
     args = ap.parse_args()
     device = torch.device(args.device)
     if device.type == "cuda":
@@ -105,7 +107,7 @@ def main() -> int:
             return 1
         ck.build()
     cfg = SlamConfig()
-    scene = synthetic.make_scene(seed=cs.SEED, num_frames=args.frames,
+    scene = synthetic.make_scene(seed=SEED, num_frames=args.frames,
                                  num_landmarks=8000, trajectory="loop",
                                  hw=tuple(args.hw))
     L, R = synthetic.render_sequence(scene)
@@ -126,7 +128,7 @@ def main() -> int:
         for k in range(args.rank_spawns):
             out = ranks.spawn(rank_runs, 2, "gloo", args.device,
                               args=(paths, scene.calib, cfg, args.device),
-                              timeout=cs.RANKS_JOIN_S)
+                              timeout=RANKS_JOIN_S)
             for j, tag in enumerate(("cold", "warm")):
                 # the BA rank (1) records the BA's inputs and results
                 runs[f"ranks {k} {tag}"] = out[1][j]

@@ -1,6 +1,9 @@
-"""The SIFT and the ORB + Hamming configurations as a whole: run_pipeline
-of both packages on one rendered loop scene per detector; and loop
-verification at the SIFT benchmark configuration's K.
+"""The SIFT and the ORB + Hamming configurations as a whole, shared by
+one test file per configuration (``test_torch_sift_slice.py``,
+``test_torch_orb_slice.py``, ``test_torch_sift_published_slice.py``), so
+that the three scenes run in three test workers: run_pipeline of both
+packages on one rendered loop scene per detector; and loop verification
+at the SIFT benchmark configuration's K (with the ORB file).
 
 The JAX package renders each scene (80 frames, ``trajectory="loop"``)
 and both packages get the same numpy images, under
@@ -91,9 +94,11 @@ BOUNDS = {"sift": (0.25, 3.0, 1.0, 1), "orb": (0.1, 5.0, 2.0, 2),
 XY_SHARE = {"sift": 1.0, "orb": 1.0, "sift_published": 0.995}
 
 
-@pytest.fixture(scope="module", params=list(CONFIGS))
-def runs(request):
-    cfg, hw = CONFIGS[request.param]
+def slice_runs(name):
+    """Configuration ``name``'s scene through both packages' run_pipeline:
+    (name, its SlamConfig, the ground truth, the JAX result, the port's);
+    each test file holds it in a module-scoped fixture ``runs``."""
+    cfg, hw = CONFIGS[name]
     scene = jsynth.make_scene(jax.random.PRNGKey(3), num_frames=80,
                               num_landmarks=6000, trajectory="loop", hw=hw)
     L, R = jsynth.render_sequence(scene)
@@ -101,7 +106,7 @@ def runs(request):
     res_j = jpipe.run_pipeline(L, R, calib, jax_config(cfg), verbose=False)
     res_t = pipeline.run_pipeline(L, R, calib, cfg, verbose=False,
                                   device="cpu")
-    return request.param, cfg, np.asarray(scene.T_w2c), res_j, res_t
+    return name, cfg, np.asarray(scene.T_w2c), res_j, res_t
 
 
 def close(got, want, atol, share):

@@ -18,8 +18,10 @@ import collections
 import functools
 import importlib
 import inspect
+import json
 import textwrap
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -33,6 +35,11 @@ from slam_tpu_torch.ops import ba, cuda_kernels, ransac, se3, stereo
 from slam_tpu_torch.ops import pose_graph as pg_ops
 from slam_tpu_torch.runtime import graphs
 from slam_tpu_torch.utils import profiling
+
+# the main path's shapes on the card: the loop scene and the main path's
+# results (tests/card_checks.py)
+from card_checks import (SEED, SLICE_TOL, cov_against_float64,  # noqa: E402
+                         loop_scene, main_path, main_windows, verify_args)
 
 torch.set_num_threads(2)
 
@@ -365,8 +372,8 @@ def test_launches_added_per_replay(stub):
 
 def test_a_caller_s_counter_added_per_replay(stub):
     """A counter in graphs.COUNTERS at a capture gets that capture's
-    counts at every replay of its graph (chip_smoke.py counts B6's
-    launches by shape so), and the capture's own are taken back."""
+    counts at every replay of its graph (the card tests' run_path counts
+    B6's launches by shape so), and the capture's own are taken back."""
     by_shape = collections.Counter()
 
     def body(x):
@@ -830,9 +837,9 @@ def to(x, device):
     return x
 
 
-# a window batch graphed against eager on the card (chip_smoke.py's
+# a window batch graphed against eager on the card (card_checks.py's
 # SLICE_TOL: 2e-4 per pose entry, 1e-4 relative cost)
-POSE_TOL, COST_TOL = 2e-4, 1e-4
+POSE_TOL, COST_TOL = SLICE_TOL["poses"], SLICE_TOL["cost"]
 
 
 def close_windows(a, b):
@@ -845,29 +852,56 @@ def close_windows(a, b):
     assert float((a[6] - b[6]).norm()) <= 1e-3 * float(b[6].norm())
 
 
+def window_case(shape, device):
+    """A window batch's solve, its inputs, new inputs of the same shapes
+    and LM's iterations. "small": ba.solve_windows on 4 seeded windows of
+    P = 4, L = 16, 5 iterations, new ones seeded otherwise. "main": the
+    loop scene's window batch as the main path builds it (16 windows at
+    P = 24, L = 512, M = 4096) through models.bundle.window_step with the
+    main path's settings, host inputs in, reversed for the new ones."""
+    if shape == "small":
+        return ((lambda w: ba.solve_windows(*w, iters=5)),
+                to(windows(B=4, P=4, L=16), device),
+                to(windows(B=4, P=4, L=16, seed=1), device), 5)
+    bc = SlamConfig().bundle
+    batch = main_windows()
+    step = bundle.window_step(loop_scene()[0].calib, device,
+                              iters=bc.lm_iters, min_depth=bc.min_depth,
+                              max_depth=bc.max_depth,
+                              huber_delta=bc.huber_delta_px)
+    B = batch.num_windows
+    inp = bundle.window_inputs(batch, 0, B, B)
+    return ((lambda w: step(*w)), inp,
+            tuple(np.ascontiguousarray(a[::-1]) for a in inp), bc.lm_iters)
+
+
 @pytest.mark.cuda
-def test_cuda_window_batch_graph_matches_eager(cuda):
+@pytest.mark.parametrize("shape", ["small", "main"])
+def test_cuda_window_batch_graph_matches_eager(cuda, shape):
     """solve_windows (the LM, the covariances and the gathers, one graph)
-    against eager on the card, B6 counted once per LM iteration either
-    way, and a replay with new inputs."""
-    win = to(windows(B=4, P=4, L=16), cuda)
+    against eager on the card, B6 counted once per LM iteration of its
+    two pruned passes either way, a replay with new inputs, and the
+    graph's rel_cov within COV_TOL of a float64 inverse of the same S;
+    at a small shape and at the main path's (``window_case``)."""
+    solve, win, win2, iters = window_case(shape, cuda)
+    graphs.clear()  # the main path's graphs: none of this test's
     with graphs.eager():
         cuda_kernels.reset_counters()
-        want = ba.solve_windows(*win, iters=5)
+        want = solve(win)
         eager_launches = dict(cuda_kernels.LAUNCHES)
-    assert eager_launches["cholesky_solve"] == 10
+    assert eager_launches["cholesky_solve"] == 2 * iters
     for _ in range(3):
         cuda_kernels.reset_counters()
-        got = ba.solve_windows(*win, iters=5)
+        got = solve(win)
         assert cuda_kernels.LAUNCHES == eager_launches
         close_windows(got, want)
     assert ba.solve_windows.replays == 2
-    win2 = to(windows(B=4, P=4, L=16, seed=1), cuda)
-    got2 = ba.solve_windows(*win2, iters=5)
+    got2 = solve(win2)
     with graphs.eager():
-        want2 = ba.solve_windows(*win2, iters=5)
+        want2 = solve(win2)
     close_windows(got2, want2)
     close_windows(got, want)  # held past the next replay
+    cov_against_float64(lambda: solve(win))
 
 
 @pytest.mark.cuda
@@ -888,31 +922,51 @@ def test_cuda_keys_sharing_a_pool_replay_in_any_order(cuda):
     assert (st["keys"], st["captures"], st["replays"]) == (2, 2, 6)
 
 
+def chunk_case(shape, device):
+    """The frontend chunk's configuration, calibration and two chunks'
+    (left, right) images. "small": 4 frames of 64 x 96 textures at CFG.
+    "kitti": the loop scene's first two chunks (32 frames of 376 x 1241)
+    at SlamConfig()."""
+    if shape == "small":
+        return (CFG, torch.from_numpy(CALIB).to(device),
+                to(textures(4), device), to(textures(4, seed=2), device))
+    sc, L, R = loop_scene()
+    cfg = SlamConfig()
+    n = cfg.runtime.chunk_frames
+
+    def chunk(i):
+        return tuple(torch.from_numpy(np.ascontiguousarray(x[i * n:
+                                                             (i + 1) * n]))
+                     .to(device) for x in (L, R))
+
+    return cfg, torch.tensor(sc.calib, device=device), chunk(0), chunk(1)
+
+
 @pytest.mark.cuda
-def test_cuda_frontend_chunk_graph_matches_eager(cuda):
-    """process_chunk from its graphs equal bit for bit to eager, with and
-    without a carry, and on new images."""
-    left, right = to(textures(4), cuda)
-    calib = torch.from_numpy(CALIB).to(cuda)
+@pytest.mark.parametrize("shape", ["small", "kitti"])
+def test_cuda_frontend_chunk_graph_matches_eager(cuda, shape):
+    """process_chunk from its graphs equal bit for bit to eager, without
+    a carry and with the first chunk's, and on new images;
+    recompute_descriptors the same; at a small shape and at KITTI's
+    (``chunk_case``)."""
+    cfg, calib, c0, c1 = chunk_case(shape, cuda)
+    graphs.clear()  # the main path's graphs: none of this test's
 
-    def run(l_, r_):
+    def run(a, b):
         out0, carry = frontend.process_chunk(
-            l_, r_, None, calib, CFG,
-            frontend.chunk_generator(CFG, 0, cuda))
+            *a, None, calib, cfg, frontend.chunk_generator(cfg, 0, cuda))
         out1, _ = frontend.process_chunk(
-            l_, r_, carry, calib, CFG,
-            frontend.chunk_generator(CFG, 1, cuda))
-        return out0, out1
+            *b, carry, calib, cfg, frontend.chunk_generator(cfg, 1, cuda))
+        return out0, out1, frontend.recompute_descriptors(*a, cfg)
 
     with graphs.eager():
-        want = run(left, right)
+        want = run(c0, c1)
     for _ in range(3):
-        assert_same(run(left, right), want)
+        assert_same(run(c0, c1), want)
     assert frontend._chunk.replays >= 4
-    l2, r2 = to(textures(4, seed=2), cuda)
-    got2 = run(l2, r2)
+    got2 = run(c1, c0)
     with graphs.eager():
-        assert_same(got2, run(l2, r2))
+        assert_same(got2, run(c1, c0))
 
 
 # the SIFT frontend's chunk: 4 octaves (num_levels 3 + the x2 one)
@@ -981,24 +1035,45 @@ def test_cuda_sift_chunk_graph_launches_b8_per_octave(cuda):
     assert len(traced) == octaves
 
 
+# the benchmark's configurations (slambench/configs), whose chunks the
+# stamps time
+BENCH_CONFIGS = ("kitti00_harris", "kitti00_akaze", "kitti00_sift")
+STAMP_RUNS = 5
+
+
 @pytest.mark.cuda
-def test_cuda_chunk_stamps_time_the_replayed_graph(cuda):
+@pytest.mark.parametrize("name", BENCH_CONFIGS)
+def test_cuda_chunk_stamps_time_the_replayed_graph(cuda, name):
     """The frontend chunk's clock stamps (the card's global timer inside
-    its graph) rise within a replay, and their span, features plus
-    motion, is within 10 % of the replay's device time by CUDA events
-    around the call (median of five), at KITTI's image size, where the
-    chunk's work outweighs the copies into its static buffers and the
-    clones of its outputs that the events also hold."""
-    cfg = SlamConfig(runtime=RuntimeConfig(chunk_frames=8))
-    left, right = to(textures(8, H=376, W=1241), cuda)
-    calib = torch.from_numpy(CALIB).to(cuda)
-    u = torch.rand((8, cfg.ransac.num_hypotheses, cfg.features.max_kp),
-                   device=cuda, generator=torch.Generator(cuda).manual_seed(0))
-    args = (left, right, None, calib, u, cfg)
+    its graph) at each benchmark configuration (32 frames of the loop
+    scene, its K, with a carry): in each of STAMP_RUNS replays they rise,
+    three stamp launches a replay, and the median of their span,
+    features plus motion, is within 10 % of the median time by CUDA
+    events around the replay (a clock has no plain version: the events
+    are its counterpart). At KITTI's image size the chunk's work
+    outweighs the copies into its static buffers and the clones of its
+    outputs that the events also hold."""
+    sc, L, R = loop_scene()
+    spec = json.loads((Path(__file__).resolve().parents[1] / "slambench"
+                       / "configs" / f"{name}.json").read_text())
+    cfg = SlamConfig.from_json(json.dumps(spec["settings"]))
+    n, fc = cfg.runtime.chunk_frames, cfg.features
+    calib = torch.tensor(sc.calib, device=cuda)
+    c0, c1 = (tuple(torch.from_numpy(np.ascontiguousarray(x[i * n:
+                                                             (i + 1) * n]))
+                    .to(cuda) for x in (L, R)) for i in (0, 1))
+    u = ransac.hypothesis_uniforms(
+        n, fc.max_kp, cfg.ransac.num_hypotheses,
+        torch.Generator(device=cuda).manual_seed(SEED), cuda)
+    _, carry, _ = frontend._chunk(*c0, None, calib, u, cfg)
+    args = (*c1, carry, calib, u, cfg)
     for _ in range(2):  # the warm-up, then the capture
         frontend._chunk(*args)
+    torch.cuda.synchronize()
+    cuda_kernels.reset_counters()
+    replays = frontend._chunk.replays
     spans, events = [], []
-    for _ in range(5):
+    for _ in range(STAMP_RUNS):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         torch.cuda.synchronize()
         ev[0].record()
@@ -1009,22 +1084,50 @@ def test_cuda_chunk_stamps_time_the_replayed_graph(cuda):
         assert bool((st[1:] > st[:-1]).all()), st
         spans.append(int(st[2] - st[0]))
         events.append(ev[0].elapsed_time(ev[1]) * 1e6)
-    assert frontend._chunk.replays >= 5
+    assert frontend._chunk.replays - replays == STAMP_RUNS
+    assert cuda_kernels.LAUNCHES["stamp"] == 3 * STAMP_RUNS
     span_ns, event_ns = float(np.median(spans)), float(np.median(events))
     assert abs(span_ns - event_ns) <= 0.1 * event_ns, (spans, events)
 
 
+def verify_case(shape, device):
+    """Loop verification's inputs, new inputs of the same shapes, and the
+    tolerance of its poses T (atol, rtol). "small": 8 seeded pairs of
+    K = 64, seeded otherwise for the new ones, (1e-5, 1e-5). "main": the
+    main path's SPEC_Q x max_candidates pairs of its keyframes (K =
+    2048), the new ones of other keyframes, (SLICE_TOL["poses"], 0)."""
+    if shape == "small":
+        return (to(verify_inputs(), device), to(verify_inputs(seed=1), device),
+                (1e-5, 1e-5))
+    res = main_path()["result"]
+    kfs = list(res.bundles.keyframes)
+    C, Q = SlamConfig().loop.max_candidates, loop_closure.SPEC_Q
+    return (verify_args(res, kfs[-Q:], kfs[:C]),
+            verify_args(res, kfs[-2 * Q:-Q], kfs[1:C + 1]),
+            (SLICE_TOL["poses"], 0.0))
+
+
 @pytest.mark.cuda
-def test_cuda_verification_graph_matches_eager(cuda):
-    args = to(verify_inputs(), cuda)
+@pytest.mark.parametrize("shape", ["small", "main"])
+def test_cuda_verification_graph_matches_eager(cuda, shape):
+    """Loop verification from its graph against eager on the card, on its
+    inputs and on new ones: inliers, accept flags and matches equal, the
+    poses within the case's tolerance; at a small shape and at the main
+    path's (``verify_case``)."""
+    args, args2, (atol, rtol) = verify_case(shape, cuda)
+    graphs.clear()  # the main path's graphs: none of this test's
+
+    def close(a, b):
+        for k in ("num_inliers", "ok", "match_tgt", "inliers"):
+            assert torch.equal(a[k], b[k]), k
+        assert torch.allclose(a["T"], b["T"], atol=atol, rtol=rtol)
+
     with graphs.eager():
-        want = loop_closure._verify_candidates(*args)
+        want = [loop_closure._verify_candidates(*a) for a in (args, args2)]
     for _ in range(3):
-        got = loop_closure._verify_candidates(*args)
-        assert torch.equal(got["num_inliers"], want["num_inliers"])
-        assert torch.equal(got["match_tgt"], want["match_tgt"])
-        assert torch.allclose(got["T"], want["T"], atol=1e-5)
+        close(loop_closure._verify_candidates(*args), want[0])
     assert loop_closure._verify_candidates.replays == 2
+    close(loop_closure._verify_candidates(*args2), want[1])
 
 
 def on_card(g, device):
@@ -1093,7 +1196,8 @@ def test_cuda_batched_lu_inverse_capture_raises(cuda):
         return torch.linalg.inv_ex(S)[0]
 
     f = graphs.graphed(batched_inverse)
-    A = torch.randn((16, 144, 144), device=cuda)
+    A = torch.randn((16, 144, 144), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(0))
     S = A @ A.transpose(1, 2) + 144 * torch.eye(144, device=cuda)
     f(S)
     with pytest.raises(RuntimeError,

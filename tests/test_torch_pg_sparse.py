@@ -23,7 +23,7 @@ from slam_tpu_torch.models import pose_graph as pg_model
 from slam_tpu_torch.models.pose_graph import PoseGraph
 from slam_tpu_torch.ops import pg_sparse
 
-import chip_smoke
+from tests.stiff_graphs import dense_cov64, stiff_loop_graph
 from tests.test_pg_sparse import add_loops
 from tests.test_pose_graph_scale import make_stiff_loop_graph
 
@@ -158,7 +158,8 @@ def test_selected_blocks_match_jax_and_dense_inverse():
     """N = 48 with two loop edges: the diagonal blocks and the queried
     cross blocks (both orders, the gauge, equal indices) within 1e-5 of
     max |C| of the JAX package's and of the dense float64 inverse of the
-    same whitened Hessian (chip_smoke.dense_cov64, phase 4k's reference);
+    same whitened Hessian (stiff_graphs.dense_cov64, the card tests'
+    reference);
     within 1e-3 of the port's dense path
     (float32, with its 1e-6 damping in the preconditioned space; the JAX
     tests' tolerance for the dense path)."""
@@ -171,7 +172,7 @@ def test_selected_blocks_match_jax_and_dense_inverse():
     Cd_t, Cq_t = (x.numpy() for x in pg_sparse.selected_blocks(
         *tp._sparse_arrays(), torch.from_numpy(qi), torch.from_numpy(qj)))
     assert Cd_t.dtype == np.float32 and Cd_t.shape == (48, 6, 6)
-    C = chip_smoke.dense_cov64(pg_sparse, tp._sparse_arrays())[0].numpy()
+    C = dense_cov64(pg_sparse, tp._sparse_arrays())[0].numpy()
     scale = np.abs(Cd_j).max()
     assert np.abs(Cd_t - Cd_j[:48]).max() < 1e-5 * scale
     assert np.abs(Cq_t - Cq_j).max() < 1e-5 * scale
@@ -326,12 +327,12 @@ def test_1100_nodes_as_shipped():
 
 
 def test_phase_4k_graph_equals_jax_construction():
-    """chip_smoke.py's stiff_loop_graph (phase 4k's graph, built without
+    """stiff_graphs.stiff_loop_graph (the card tests' graph, built without
     the JAX package) equals the JAX tests' make_stiff_loop_graph +
     add_loops bit for bit."""
     N, loops = 600, ((100, 400), (250, 590))
     pg, _ = graphs(N, loops)
-    tp = chip_smoke.stiff_loop_graph(N, "cpu", loops=loops)
+    tp = stiff_loop_graph(N, "cpu", loops=loops)
     for k in ("nodes", "e_i", "e_j", "Z", "sqrt_info", "is_loop"):
         a, b = getattr(tp, k), getattr(pg, k)
         assert a.dtype == b.dtype and np.array_equal(a, b), k
@@ -339,14 +340,14 @@ def test_phase_4k_graph_equals_jax_construction():
 
 
 def test_selected_blocks_accurate_at_1024():
-    """At N = 1024 with three loop edges (phase 4k's graph, shorter), every
+    """At N = 1024 with three loop edges (the card tests' graph, shorter), every
     diagonal block but the gauge's and the cross blocks of pairs 499 apart
-    within 1e-6 of the dense float64 inverse (chip_smoke.dense_cov64),
+    within 1e-6 of the dense float64 inverse (stiff_graphs.dense_cov64),
     relative to each block's largest entry; the JAX package's blocks, whose
     factorization forms B D^-1 B^T from an LU inverse, more than 1e-6 off
     on the same graph (ops/pg_sparse.py _factorize). Prints both."""
     N, loops = 1024, ((100, 464), (500, 864))
-    tp = chip_smoke.stiff_loop_graph(N, "cpu", loops=loops)
+    tp = stiff_loop_graph(N, "cpu", loops=loops)
     pg, _ = graphs(N, loops)
     args = tp._sparse_arrays()
     pi = np.arange(17, N - 500, 17)
@@ -357,7 +358,7 @@ def test_selected_blocks_accurate_at_1024():
     Cd_j, Cq_j = (torch.as_tensor(np.asarray(x)) for x in jps.selected_blocks(
         *pg._sparse_arrays(), jnp.asarray(qi, jnp.int32),
         jnp.asarray(qj, jnp.int32)))
-    C, _ = chip_smoke.dense_cov64(pg_sparse, args)
+    C, _ = dense_cov64(pg_sparse, args)
     k = torch.arange(1, N)
     ref = (C[k, :, k, :], C[qi, :, qj, :])
 

@@ -355,7 +355,7 @@ def test_cuda_solve_windows_matches_plain(cuda, shape, iters):
     assert launches["schur_reduce"] == launches["cholesky_solve"] + 1
     assert not any(ck.PLAIN_CALLS.values())
     got = [g.cpu() for g in got]
-    # chip_smoke.py's SLICE_TOL: 2e-4 per pose entry, 1e-4 relative cost
+    # card_checks.py's SLICE_TOL: 2e-4 per pose entry, 1e-4 relative cost
     assert torch.allclose(got[0], want[0], atol=2e-4, rtol=0)
     assert torch.allclose(got[3], want[3], rtol=1e-4, atol=1e-6)
     assert torch.allclose(got[5], want[5], atol=2e-4, rtol=0)

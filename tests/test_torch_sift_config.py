@@ -9,8 +9,9 @@ rendered from a seed: detection and description of one stereo pair
 under the Hamming norm, a 24-frame loop through ``run_pipeline`` held to
 the cell's limits, and K = 2500, which is not a multiple of 128, through
 the per-octave budgets and loop verification. The same settings are held
-against the JAX package in test_torch_sift.py (detection) and
-test_torch_sift_orb_slice.py (the loop, and verification at K = 2500);
+against the JAX package in test_torch_sift.py (detection),
+test_torch_sift_published_slice.py (the loop) and test_torch_orb_slice.py
+(verification at K = 2500);
 B2 at K = 2500 on the card in test_torch_kernels.py.
 """
 

@@ -428,7 +428,8 @@ def test_cuda_sift_octave_last_octave(cuda):
 
 @pytest.mark.cuda
 def test_cuda_sift_octave_rejects(cuda):
-    x = torch.rand((1, 40, 60), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.rand((1, 40, 60), generator=gen, device=cuda)
     for intervals in (1, 6):
         with pytest.raises(ValueError, match="intervals"):
             ck.sift_octave(x, CONTRAST, intervals=intervals)

@@ -364,11 +364,20 @@ def foreign_imports(path: Path) -> list:
     return found
 
 
+# the card tests of whole paths and what they import from tests/: they
+# run on the card, where JAX is absent
+CARD_TEST_FILES = ("test_torch_card_paths.py", "test_torch_card_modes.py",
+                   "card_checks.py", "stiff_graphs.py",
+                   "test_torch_schur_reduce.py")
+
+
 def test_port_sources_import_nothing_of_jax():
-    """No module of the port, and not chip_smoke.py, imports jax or any
-    module of the JAX package (``slam_tpu_torch`` is the port's own)."""
+    """No module of the port, not chip_smoke.py and not the card tests of
+    whole paths (CARD_TEST_FILES) imports jax or any module of the JAX
+    package (``slam_tpu_torch`` is the port's own)."""
     files = sorted((REPO / "slam_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    files += [REPO / "tests" / name for name in CARD_TEST_FILES]
     assert len(files) > 20
     names = {str(p.relative_to(REPO)) for p in files}
     assert {"slam_tpu_torch/utils/kitti.py", "slam_tpu_torch/runtime/"
