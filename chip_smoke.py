@@ -1,5 +1,5 @@
 """Kernel bench of slam_tpu_torch on one CUDA card: each hand-written
-kernel (B1-B8) against its plain version at the shapes the paths use,
+kernel (B1-B9) against its plain version at the shapes the paths use,
 with stated tolerances, then its time, the plain version's and the least
 time the card could take.
 
@@ -73,6 +73,17 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      the kernel and the plain version (the reduction, and the reduction
      with the landmark steps), the bound, and the wrapper's host
      microseconds per call at the pair's shape;
+  2g. kernel B9 (pg_system, and its step pg_step) against its plain
+     version on the card at the dense pose graph's node buckets: a
+     17-keyframe loop at 64 nodes, a 68-keyframe one at 128 and KITTI
+     00's 652 keyframes at 704, by the card tests' rule
+     (tests/pg_system_check.py): A and rhs within 1e-4 of their largest
+     entry and the cost within 1e-5 relative of the plain version's on
+     float64 copies, A exactly symmetric, the step's decision and damping
+     equal; median times of the system, the step and their plain
+     versions, of the LU solve between them, and the bound (the record's
+     max_abs_err is A's and rhs's error over their largest entry, A's
+     ~1 after the Jacobi scaling);
   3. kernel B2 (mutual_nearest) against its plain version on the card at
      every call the main path makes: (32, 2048, 128) with the stereo and
      the temporal window of SlamConfig().matching, and loop verification's
@@ -96,7 +107,8 @@ operations over the peak rate of their type, the larger), one PyTorch
 call computing the same function where there is one, and its launches
 in phase 4's counted pass of each path that runs it; B4's launches in
 phase 2b (it has no caller on the batched paths), B3's times at SIFT's
-octave shapes, B8's at each octave. The last line is the device record.
+octave shapes, B8's at each octave, B9's at each bucket. The last line
+is the device record.
 Nothing here imports JAX or any module of the JAX package.
 
 The card tests (``-m cuda``, the card-test files the README lists) hold
@@ -138,6 +150,11 @@ OPS_PER_PIXEL = {"harris_response": 100, "orientation_maps": 200,
 # B8: the five blurs' 134 multiply-adds a pixel (radii 4, 5, 6, 7, 9, both
 # passes) and the 5 DoG subtractions, what any implementation must do
 OPS_PER_PIXEL["sift_octave"] = 273
+# B9's float64 arithmetic per edge, counted roughly: the edge's transform
+# and log (~150), Jr^-1 (~650), Ad and J = S Jr^-1 Ad (~650), P = J^T J
+# and q (~300); the H100 SXM's float64 rate outside the tensor cores
+B9_OPS_PER_EDGE = 1750
+PEAK_OPS_PER_S["f64"] = 34e12
 
 
 def log(*a):
@@ -674,6 +691,53 @@ def check_b7(ck, args, label: str) -> float:
     return err
 
 
+def b9_bound(args):
+    """B9's bound, one system: the nodes, the edges (two int64 indices,
+    Z^-1, S, the weight) and the mask in; A, rhs and dscale out; or the
+    edges' float64 arithmetic (B9_OPS_PER_EDGE), the larger."""
+    nodes, e_i = args[0], args[1]
+    N, E = nodes.shape[0], e_i.shape[0]
+    n_bytes = (64 * N + E * (16 + 64 + 144 + 4) + 24 * N
+               + 4 * (36 * N * N + 12 * N))
+    return bound(n_bytes, B9_OPS_PER_EDGE * E, "f64")
+
+
+def b9_phase(ck, card: str):
+    """Phase 2g: B9 against its plain version at each bucket of
+    pg_system_check.BUCKETS (its rule), then median times of the system,
+    the step, their plain versions and the LU solve between them, and the
+    bound. Returns (the largest A / rhs error, {bucket: (system ms, plain
+    system ms, step ms, plain step ms, LU solve ms, bound ms, bound by)})."""
+    import pg_system_check as pgc
+
+    err, at = 0.0, {}
+    for bucket in pgc.BUCKETS:
+        args = pgc.system_args(pgc.bucket_graph(bucket, "cuda"))
+        try:
+            errs = pgc.check_system(ck, args)
+        except AssertionError as e:
+            fail(f"B9 at {bucket} nodes: {e}")
+        err = max(err, errs["A"], errs["rhs"])
+        A, rhs, dscale, cost = ck.pg_system(*args)
+        x = torch.linalg.solve_ex(A, rhs[:, None])[0][:, 0]
+        nodes, lam, c = args[0].clone(), args[7].clone(), cost.clone()
+        edges = args[1:6]
+        at[bucket] = t = (
+            median_ms(lambda: ck.pg_system(*args)),
+            median_ms(lambda: ck.pg_system_plain(*args)),
+            median_ms(lambda: ck.pg_step(nodes, x, dscale, c, lam, *edges)),
+            median_ms(lambda: ck.pg_step_plain(nodes, x, dscale, c, lam,
+                                               *edges)),
+            median_ms(lambda: torch.linalg.solve_ex(A, rhs[:, None])),
+            *b9_bound(args))
+        log(f"[B9] {bucket} nodes, {args[1].shape[0]} edges: errors "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f"; median of {TIMING_RUNS}: system {t[0]:.4f} ms (plain "
+            f"{t[1]:.4f}), step {t[2]:.4f} ms (plain {t[3]:.4f}), LU solve "
+            f"{t[4]:.4f} ms, bound {t[5]:.5f} ms ({t[6]}) ({card})")
+    return err, at
+
+
 def scene_windows(frontend, bundle, TrackStore, L, R, scene, cfg):
     """The scene's BA windows, built on the host from a frontend run on
     the card as run_bundles builds them."""
@@ -976,6 +1040,12 @@ def main(argv=None) -> int:
     bounds["schur_reduce"] = b7_bound(b7_sets["device batch"])
     del b7_sets, k_, p_, pair
 
+    # ---- 2g. kernel B9 ------------------------------------------------------
+    # the pose graph's LM system and step at the dense node buckets: the
+    # loops' 64, the clover's 128 and KITTI 00's 704
+    b9_err, b9_at = b9_phase(ck, card)
+    bounds["pg_system"] = b9_at[64][5:]
+
     # ---- 3. kernel B2 -------------------------------------------------------
     # every call of the main path: the frontend's stereo and temporal
     # matching (windows of SlamConfig().matching) and loop verification
@@ -1083,6 +1153,12 @@ def main(argv=None) -> int:
          "replaces": "no TPU kernel (plain jnp in slam_tpu/ops/sift.py)",
          "max_abs_err": b8_err, "ms": b8_times[first][0],
          "plain_ms": b8_times[first][1], "at_octaves": b8_times},
+        {"name": "pg_system", "route": "cuda",
+         "source": "slam_tpu_torch/csrc/pose_graph.cu",
+         "replaces": "no TPU kernel (jax.jacfwd and plain jnp in "
+                     "slam_tpu/ops/pose_graph.py)",
+         "max_abs_err": b9_err, "ms": b9_at[64][0], "plain_ms": b9_at[64][1],
+         "at_buckets": b9_at},
     ]
     for k in kernels:
         k["bound_ms"], k["bound_by"] = bounds[k["name"]]
@@ -1092,6 +1168,8 @@ def main(argv=None) -> int:
     for k in kernels:
         k["launches"] = {p: n[k["name"]] for p, n in path_launches.items()
                          if n[k["name"]]}
+    by_name["pg_system"]["step_launches"] = {
+        p: n["pg_step"] for p, n in path_launches.items() if n["pg_step"]}
     by_name["harris_response"]["launches_phase_2b"] = b4_launches
     by_name["orientation_maps"]["at_sift_octaves"] = b3_sift
 

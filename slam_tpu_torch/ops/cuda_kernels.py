@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels, with their plain versions.
 
-Counterpart of ``slam_tpu/ops/pallas_kernels.py`` (B1-B6), plus B7 and
-B8, which have no TPU counterpart, and a clock stamp. Eight kernels:
+Counterpart of ``slam_tpu/ops/pallas_kernels.py`` (B1-B6), plus B7, B8
+and B9, which have no TPU counterpart, and a clock stamp. Nine kernels:
 
   B1 ``detect_maps``       Harris response, 5x5 NMS map and 8 orientation
                            cell maps in one pass (csrc/detect_maps.cu);
@@ -34,7 +34,16 @@ B8, which have no TPU counterpart, and a clock stamp. Eight kernels:
                            interval and the next octave's base in one pass
                            (csrc/sift_octave.cu); every octave of
                            ops/sift.py. It replaces no TPU kernel: the JAX
-                           package computes this in plain jnp.
+                           package computes this in plain jnp;
+  B9 ``pg_system``         the dense pose graph's LM system: each edge's
+                           residual and closed-form Jacobian, the
+                           preconditioned, damped normal equations and the
+                           cost, and (its second entry point, ``pg_step``)
+                           the retraction, trial cost and accept rule
+                           (csrc/pose_graph.cu); every LM iteration and
+                           covariance of ops/pose_graph.py. It replaces no
+                           TPU kernel: the JAX package linearizes with
+                           jax.jacfwd and assembles in plain jnp.
 
 and ``stamp``, the card's clock written into a slot of a buffer
 (csrc/stamp.cu): times inside a CUDA graph (the frontend's chunk).
@@ -70,13 +79,14 @@ from pathlib import Path
 
 import torch
 
-from . import akaze, features, sift
+from . import akaze, features, se3, sift
 
 BIG = 1e30
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(_PKG / "csrc" / n for n in (
     "detect_maps.cu", "mutual_nearest.cu", "akaze_octave.cu",
-    "cholesky_solve.cu", "schur_reduce.cu", "sift_octave.cu", "stamp.cu"))
+    "cholesky_solve.cu", "schur_reduce.cu", "sift_octave.cu", "pose_graph.cu",
+    "stamp.cu"))
 HEADERS = (_PKG / "csrc" / "launch.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "slam_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -84,16 +94,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 KERNELS = ("detect_maps", "mutual_nearest", "orientation_maps",
            "harris_response", "akaze_octave", "cholesky_solve",
-           "schur_reduce", "sift_octave", "stamp")
+           "schur_reduce", "sift_octave", "pg_system", "pg_step", "stamp")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 _lib = None
 build_log = ""
 # read from the library when it loads: B6's largest N, B5's most steps,
-# B7's most pose rows
+# B7's most pose rows, B9's most nodes
 cholesky_max_n = 0
 akaze_max_steps = 0
 schur_max_poses = 0
+pg_max_nodes = 0
 
 
 def reset_counters() -> None:
@@ -142,6 +153,7 @@ def _run_all(cmds) -> str:
 def build() -> ctypes.CDLL:
     """Compile (once per source content) and load the kernel library."""
     global _lib, build_log, cholesky_max_n, akaze_max_steps, schur_max_poses
+    global pg_max_nodes
     if _lib is not None:
         return _lib
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -182,6 +194,11 @@ def build() -> ctypes.CDLL:
     lib.slam_schur_max_poses.argtypes = []
     lib.slam_sift_octave.argtypes = [p, p, p, p, p, i, i, i, i, p, p, f, f,
                                      i, p]
+    lib.slam_pg_system.argtypes = [p, p, p, p, p, p, p, p, i, i, p, p, p, p,
+                                   p, p, p, i, p]
+    lib.slam_pg_step.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, p, p, i,
+                                 p]
+    lib.slam_pg_max_nodes.argtypes = []
     lib.slam_stamp.argtypes = [p, i, i, p]
     for fn in (lib.slam_detect_maps, lib.slam_harris_response,
                lib.slam_orientation_maps, lib.slam_akaze_octave,
@@ -190,11 +207,13 @@ def build() -> ctypes.CDLL:
                lib.slam_cholesky_max_n, lib.slam_mutual_nearest,
                lib.slam_schur_reduce, lib.slam_schur_back,
                lib.slam_schur_max_poses, lib.slam_sift_octave,
+               lib.slam_pg_system, lib.slam_pg_step, lib.slam_pg_max_nodes,
                lib.slam_stamp):
         fn.restype = i
     cholesky_max_n = lib.slam_cholesky_max_n()
     akaze_max_steps = lib.slam_akaze_max_steps()
     schur_max_poses = lib.slam_schur_max_poses()
+    pg_max_nodes = lib.slam_pg_max_nodes()
     _lib = lib
     return lib
 
@@ -744,6 +763,158 @@ def sift_octave(level: torch.Tensor, contrast: float,
     _check(err, "sift_octave")
     LAUNCHES["sift_octave"] += 1
     return resp, nms, s, nxt
+
+
+# ---------------------------------------------------------------------------
+# B9: the dense pose graph's LM system and step (csrc/pose_graph.cu)
+# ---------------------------------------------------------------------------
+
+def pg_system_plain(nodes, e_i, e_j, Z_inv, sqrt_info, wE, mask, lam):
+    """Plain version of B9's system: ``ops.pose_graph``'s forward-mode
+    linearization (``_weighted_res_jac``), ``_assemble`` and
+    ``_precondition``, ``lam`` added to the diagonal, and ``_cost`` at
+    ``nodes``."""
+    from . import pose_graph as pg
+
+    PLAIN_CALLS["pg_system"] += 1
+    N = nodes.shape[0]
+    r, Ji, Jj = pg._weighted_res_jac(nodes, e_i, e_j, Z_inv, sqrt_info, wE)
+    H, g = pg._assemble(N, e_i, e_j, Ji, Jj, r)
+    Hs, dscale = pg._precondition(H, mask)
+    eye = torch.eye(6 * N, dtype=H.dtype, device=H.device)
+    return (Hs + lam * eye, dscale * g * mask, dscale,
+            pg._cost(nodes, e_i, e_j, Z_inv, sqrt_info, wE))
+
+
+def pg_step_plain(nodes, x, dscale, cost, lam, e_i, e_j, Z_inv, sqrt_info,
+                  wE) -> None:
+    """Plain version of B9's step: ``optimize``'s retraction by -(dscale
+    x), the trial cost and its accept rule, written into ``nodes``,
+    ``cost`` and ``lam``."""
+    from . import pose_graph as pg
+
+    PLAIN_CALLS["pg_step"] += 1
+    N = nodes.shape[0]
+    new_nodes = se3.retract(nodes, -(dscale * x).reshape(N, 6))
+    new_cost = pg._cost(new_nodes, e_i, e_j, Z_inv, sqrt_info, wE)
+    ok = torch.isfinite(new_cost) & (new_cost < cost * (1.0 - 1e-3))
+    nodes.copy_(torch.where(ok, new_nodes, nodes))
+    lam.copy_(torch.where(ok, torch.clamp(lam / 3.0, min=1e-9),
+                          torch.clamp(lam * 5.0, max=1e4)))
+    cost.copy_(torch.where(ok, new_cost, cost))
+
+
+def _pg_edges(name, nodes, e_i, e_j, Z_inv, sqrt_info, wE):
+    """(N, E, device) of B9's node and edge arguments, checked."""
+    _require(nodes.dim() == 3 and nodes.shape[1:] == (4, 4),
+             "{}: nodes must be (N, 4, 4), got {}", name, tuple(nodes.shape))
+    N, E = nodes.shape[0], e_i.shape[0]
+    _require(e_i.dim() == 1 and e_j.shape == (E,)
+             and Z_inv.shape == (E, 4, 4) and sqrt_info.shape == (E, 6, 6)
+             and wE.shape == (E,),
+             "{}: e_j, Z_inv, sqrt_info and wE do not match e_i ({},)", name,
+             E)
+    dev = nodes.device
+    _require(all(t.device == dev for t in (e_i, e_j, Z_inv, sqrt_info, wE)),
+             "{}: tensors on several devices", name)
+    if dev.type == "cuda":
+        _require(all(t.dtype == torch.float32
+                     for t in (nodes, Z_inv, sqrt_info, wE))
+                 and not e_i.is_floating_point()
+                 and not e_j.is_floating_point(),
+                 "{}: expected float32 nodes and edges, integer indices",
+                 name)
+        _require(N > 0, "{}: no nodes", name)
+    return N, E, dev
+
+
+def pg_system(nodes, e_i, e_j, Z_inv, sqrt_info, wE, mask, lam):
+    """Kernel B9: the dense pose graph's LM system at ``nodes`` (csrc/
+    pose_graph.cu). Nodes (N, 4, 4), the edges e_i, e_j (E,), Z_inv (E, 4,
+    4), sqrt_info (E, 6, 6) and their weights wE (E,) (0: padding), the
+    node mask (6N,) (0: the gauge node and padded nodes) and the damping
+    lam, a 0-dim tensor on the nodes' device (read there, so a CUDA graph
+    holds it). Returns (A, rhs, dscale, cost): A (6N, 6N) = the Jacobi-
+    preconditioned masked Gauss-Newton matrix + lam I, rhs = dscale g mask
+    (6N,), dscale (6N,) and the cost at ``nodes`` (0-dim), float32. The
+    kernel's Jacobians are closed-form, computed in float64 (the plain
+    version's are forward-mode in float32), its sums in one fixed order,
+    and its A exactly symmetric. Raises ValueError for more nodes than it
+    takes (``pg_max_nodes``). Besides the launches it makes no ctypes
+    call."""
+    N, E, dev = _pg_edges("pg_system", nodes, e_i, e_j, Z_inv, sqrt_info, wE)
+    _require(mask.shape == (6 * N,) and lam.dim() == 0
+             and mask.device == dev and lam.device == dev,
+             "pg_system: mask must be ({},) and lam 0-dim, on {}", 6 * N, dev)
+    if dev.type == "cpu":
+        return pg_system_plain(nodes, e_i, e_j, Z_inv, sqrt_info, wE, mask,
+                               lam)
+    _require(dev.type == "cuda", "pg_system: unsupported device {}", dev)
+    _require(mask.dtype == torch.float32 and lam.dtype == torch.float32,
+             "pg_system: mask and lam must be float32")
+    lib = build()
+    _require(N <= pg_max_nodes, "pg_system: N={} above the {} nodes B9 "
+             "takes", N, pg_max_nodes)
+    nodes, Z_inv, sqrt_info, wE, mask = (
+        t.contiguous() for t in (nodes, Z_inv, sqrt_info, wE, mask))
+    e_i, e_j = e_i.long().contiguous(), e_j.long().contiguous()
+    f32, f64 = torch.float32, torch.float64
+    A = torch.empty((6 * N, 6 * N), dtype=f32, device=dev)
+    rhs = torch.empty(6 * N, dtype=f32, device=dev)
+    dscale = torch.empty(6 * N, dtype=f32, device=dev)
+    cost = torch.empty((), dtype=f32, device=dev)
+    diag = torch.empty((N, 36), dtype=f32, device=dev)
+    Pe = torch.empty((max(E, 1), 21), dtype=f64, device=dev)
+    ce = torch.empty(max(E, 1), dtype=f64, device=dev)
+    err = lib.slam_pg_system(
+        nodes.data_ptr(), e_i.data_ptr(), e_j.data_ptr(), Z_inv.data_ptr(),
+        sqrt_info.data_ptr(), wE.data_ptr(), mask.data_ptr(), lam.data_ptr(),
+        N, E, A.data_ptr(), rhs.data_ptr(), dscale.data_ptr(),
+        cost.data_ptr(), diag.data_ptr(), Pe.data_ptr(), ce.data_ptr(),
+        dev.index, _stream(nodes))
+    _check(err, "pg_system")
+    LAUNCHES["pg_system"] += 1
+    return A, rhs, dscale, cost
+
+
+def pg_step(nodes, x, dscale, cost, lam, e_i, e_j, Z_inv, sqrt_info,
+            wE) -> None:
+    """B9's second entry point, one launch: retract every node by -(dscale
+    x) (x (6N,) the solution of ``pg_system``'s A x = rhs), evaluate the
+    trial cost and apply ``optimize``'s accept rule (finite and below
+    cost (1 - 1e-3)); ``nodes``, ``cost`` and ``lam`` (contiguous float32,
+    0-dim the last two) are written in place: the trial nodes, the trial
+    cost and lam / 3 (at least 1e-9) if accepted, else lam x 5 (at most
+    1e4)."""
+    N, E, dev = _pg_edges("pg_step", nodes, e_i, e_j, Z_inv, sqrt_info, wE)
+    _require(x.shape == (6 * N,) and dscale.shape == (6 * N,)
+             and cost.dim() == 0 and lam.dim() == 0
+             and all(t.device == dev for t in (x, dscale, cost, lam)),
+             "pg_step: x and dscale must be ({},), cost and lam 0-dim, on {}",
+             6 * N, dev)
+    if dev.type == "cpu":
+        return pg_step_plain(nodes, x, dscale, cost, lam, e_i, e_j, Z_inv,
+                             sqrt_info, wE)
+    _require(dev.type == "cuda", "pg_step: unsupported device {}", dev)
+    _require(all(t.dtype == torch.float32 for t in (x, dscale, cost, lam))
+             and all(t.is_contiguous() for t in (nodes, cost, lam)),
+             "pg_step: nodes, cost and lam must be contiguous float32 (they "
+             "are written in place)")
+    lib = build()
+    _require(N <= pg_max_nodes, "pg_step: N={} above the {} nodes B9 takes",
+             N, pg_max_nodes)
+    x, dscale, Z_inv, sqrt_info, wE = (
+        t.contiguous() for t in (x, dscale, Z_inv, sqrt_info, wE))
+    e_i, e_j = e_i.long().contiguous(), e_j.long().contiguous()
+    trial = torch.empty_like(nodes)
+    ce = torch.empty(max(E, 1), dtype=torch.float64, device=dev)
+    err = lib.slam_pg_step(
+        nodes.data_ptr(), x.data_ptr(), dscale.data_ptr(), cost.data_ptr(),
+        lam.data_ptr(), e_i.data_ptr(), e_j.data_ptr(), Z_inv.data_ptr(),
+        sqrt_info.data_ptr(), wE.data_ptr(), N, E, trial.data_ptr(),
+        ce.data_ptr(), dev.index, _stream(nodes))
+    _check(err, "pg_step")
+    LAUNCHES["pg_step"] += 1
 
 
 # ---------------------------------------------------------------------------

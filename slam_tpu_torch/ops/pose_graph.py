@@ -6,9 +6,12 @@ and a 6x6 sqrt-information; the residual is
 ``r_ij = sqrt_info log(Z^-1 X_j X_i^-1)``. The normal equations are
 assembled dense, (6N, 6N), and Jacobi-preconditioned before every solve
 (the raw diagonal spans ~1 to ~1e7, which breaks float32 solves at a few
-hundred nodes). Edge Jacobians are forward-mode derivatives of the
-residual in the right perturbations of both nodes, as ``jax.jacfwd``
-gives them in the JAX package.
+hundred nodes). Kernel B9 (``cuda_kernels.pg_system`` and ``pg_step``)
+builds each LM iteration's system and takes its step on the card, around
+the library's LU; its plain version, on the CPU, takes the edge Jacobians
+as forward-mode derivatives of the residual in the right perturbations
+of both nodes, as ``jax.jacfwd`` gives them in the JAX package, and B9 in
+their closed form (``J_j = S Jr^-1(xi) Ad(X_i)``, ``J_i = -J_j``).
 
 The models pad the graph to static buckets (``models/pose_graph.py``), as
 the JAX package does: ``e_valid`` (E,) bool weighs the edges and
@@ -30,6 +33,7 @@ import torch
 import torch.autograd.forward_ad as fwAD
 
 from ..runtime import graphs
+from . import cuda_kernels as ck
 from . import se3
 
 
@@ -84,10 +88,10 @@ def _weighted_res_jac(nodes, e_i, e_j, Z_inv, sqrt_info, wE):
             Jj * wE[:, None, None])
 
 
-def _assemble(N, e_i, e_j, Ji, Jj, r=None):
-    """Dense (6N, 6N) Gauss-Newton matrix (and gradient (6N,) with r),
-    the same bit for bit for the same valid edges on every run and at
-    every padding: a node's diagonal block and gradient sum its few edge
+def _assemble(N, e_i, e_j, Ji, Jj, r):
+    """Dense (6N, 6N) Gauss-Newton matrix and gradient (6N,), the same bit
+    for bit for the same valid edges on every run and at every padding:
+    a node's diagonal block and gradient sum its few edge
     terms in float64, where the sum is exact (up to the terms' exponent
     span), so the order ``index_add_``'s atomics take cannot change the
     float32 result; an edge's off-diagonal blocks go to slots of their own
@@ -103,8 +107,6 @@ def _assemble(N, e_i, e_j, Ji, Jj, r=None):
     d = torch.arange(N, device=dev)
     blocks[d * N + d] = diag.to(dt)
     H = blocks.reshape(N, N, 6, 6).permute(0, 2, 1, 3).reshape(6 * N, 6 * N)
-    if r is None:
-        return H
     g = torch.zeros((N, 6), dtype=torch.float64, device=dev)
     g.index_add_(0, e_i, (JiT @ r[..., None])[..., 0].double())
     g.index_add_(0, e_j, (JjT @ r[..., None])[..., 0].double())
@@ -117,6 +119,13 @@ def _precondition(H, mask):
     return H * dscale[:, None] * dscale[None, :], dscale
 
 
+def _cost(nodes, e_i, e_j, Z_inv, sqrt_info, wE):
+    """Half the sum of the squared whitened residuals, padded edges
+    weighing zero."""
+    r = edge_residual(nodes[e_i], nodes[e_j], Z_inv, sqrt_info) * wE[:, None]
+    return 0.5 * torch.sum(r * r)
+
+
 @graphs.graphed(static=("iters", "lam0"))
 def optimize(nodes, e_i, e_j, Z, sqrt_info, e_valid=None, iters: int = 15,
              lam0: float = 1e-6, n_valid=None):
@@ -124,46 +133,37 @@ def optimize(nodes, e_i, e_j, Z, sqrt_info, e_valid=None, iters: int = 15,
     e_i / e_j (E,), Z (E, 4, 4), sqrt_info (E, 6, 6), the padding masks
     e_valid (E,) and n_valid (N,). A step is accepted only if it cuts the
     cost by more than 0.1%: below that, float32 cost noise would read as
-    improvement and random-walk the nodes. Returns (nodes, cost)."""
+    improvement and random-walk the nodes. An iteration is B9's system,
+    the LU solve and B9's step, which updates the nodes, the cost and the
+    damping in place on the device. Returns (nodes, cost)."""
     N = nodes.shape[0]
     Z_inv = se3.inverse(Z)
     wE = _edge_weights(e_valid, e_i, nodes.dtype)
     mask = _node_mask(N, nodes.dtype, nodes.device, n_valid)
-    eye = torch.eye(6 * N, dtype=nodes.dtype, device=nodes.device)
-
-    def cost_of(X):
-        r = edge_residual(X[e_i], X[e_j], Z_inv, sqrt_info) * wE[:, None]
-        return 0.5 * torch.sum(r * r)
-
-    cost = cost_of(nodes)
+    if not iters:
+        return nodes, _cost(nodes, e_i, e_j, Z_inv, sqrt_info, wE)
+    # B9's step writes the nodes in place
+    nodes = nodes.clone(memory_format=torch.contiguous_format)
     lam = torch.full((), lam0, dtype=nodes.dtype, device=nodes.device)
     for _ in range(iters):
-        r, Ji, Jj = _weighted_res_jac(nodes, e_i, e_j, Z_inv, sqrt_info, wE)
-        H, g = _assemble(N, e_i, e_j, Ji, Jj, r)
-        Hs, dscale = _precondition(H, mask)
-        x = torch.linalg.solve_ex(Hs + lam * eye, (dscale * g * mask)[:, None]
-                                  )[0][:, 0]
-        new_nodes = se3.retract(nodes, -(dscale * x).reshape(N, 6))
-        new_cost = cost_of(new_nodes)
-        ok = torch.isfinite(new_cost) & (new_cost < cost * (1.0 - 1e-3))
-        nodes = torch.where(ok, new_nodes, nodes)
-        lam = torch.where(ok, torch.clamp(lam / 3.0, min=1e-9),
-                          torch.clamp(lam * 5.0, max=1e4))
-        cost = torch.where(ok, new_cost, cost)
+        A, rhs, dscale, cost = ck.pg_system(nodes, e_i, e_j, Z_inv,
+                                            sqrt_info, wE, mask, lam)
+        x = torch.linalg.solve_ex(A, rhs[:, None])[0][:, 0]
+        ck.pg_step(nodes, x, dscale, cost, lam, e_i, e_j, Z_inv, sqrt_info,
+                   wE)
     return nodes, cost
 
 
 def _covariance_full(nodes, e_i, e_j, Z, sqrt_info, e_valid, n_valid):
     """The body :func:`gn_hessian_inverse`, :func:`gate_matrix` and
-    :func:`marginal_logdets` share: the covariance (N, 6, N, 6)."""
+    :func:`marginal_logdets` share: the covariance (N, 6, N, 6), from B9's
+    system at lam = 1e-6."""
     N = nodes.shape[0]
     wE = _edge_weights(e_valid, e_i, nodes.dtype)
-    _, Ji, Jj = _weighted_res_jac(nodes, e_i, e_j, se3.inverse(Z), sqrt_info,
-                                  wE)
-    H = _assemble(N, e_i, e_j, Ji, Jj)
     mask = _node_mask(N, nodes.dtype, nodes.device, n_valid)
-    Hs, dscale = _precondition(H, mask)
-    Hs = Hs + 1e-6 * torch.eye(6 * N, dtype=H.dtype, device=H.device)
+    lam = torch.full((), 1e-6, dtype=nodes.dtype, device=nodes.device)
+    Hs, _, dscale, _ = ck.pg_system(nodes, e_i, e_j, se3.inverse(Z),
+                                    sqrt_info, wE, mask, lam)
     C = torch.linalg.inv_ex(Hs)[0] * dscale[:, None] * dscale[None, :]
     C = 0.5 * (C + C.T)
     C = C * mask[:, None] * mask[None, :]

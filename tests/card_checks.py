@@ -57,6 +57,8 @@ TRACE_NAMES = {"detect_maps": "maps_kernel<true, true>",
                "cholesky_solve": "cholesky_solve_kernel<",
                "schur_reduce": "schur_poses_kernel",
                "sift_octave": "sift_octave_kernel<",
+               "pg_system": "pg_rows_kernel",
+               "pg_step": "pg_step_kernel",
                "stamp": "stamp_kernel"}
 # host seconds of idle trace before the lead call and after the last
 # marker, per attempt: a trace drops device events whose times, mapped to
@@ -155,28 +157,33 @@ def run_path(cfg, required, *, trace=False, plain_ok=(), on_reset=None,
     warm-up passes until one captures no new graph, then a pass with the
     counters zeroed just before it (``on_reset`` is called there too) and
     read just after. ops.ba._spd_solve and _covariance_system are wrapped
-    to count LM iterations by shape and covariance systems, with their
-    counters in graphs.COUNTERS while the graphs are captured, so that
-    replays count too. With ``trace`` one more pass runs under
-    torch.profiler after a lead pass (``traced_launches``): its launches
-    must equal the untraced pass's and, kernel by kernel, the trace's.
+    to count LM iterations by shape and covariance systems, and
+    ops.pose_graph.optimize and _covariance_full the pose graph's LM
+    iterations and covariances, with their counters in graphs.COUNTERS
+    while the graphs are captured, so that replays count too. With
+    ``trace`` one more pass runs under torch.profiler after a lead pass
+    (``traced_launches``): its launches must equal the untraced pass's
+    and, kernel by kernel, the trace's.
 
     Holds: every kernel in ``required`` launched, no plain version run
     (but those of ``plain_ok``, put in on purpose), the frontend's
     trajectory finite, >= 1 loop closure and every stage's ATE under 1 m.
     Returns the launches, plain calls, ATEs, closure frame pairs, BA
     windows, the result, and the counted pass's LM iterations by shape
-    (``solves``), covariance systems (``cov_systems``) and replays of the
-    frontend chunk's graph (``chunk_replays``)."""
+    (``solves``), covariance systems (``cov_systems``), the pose graph's
+    LM iterations (``pg_iters``) and covariances (``pg_covs``) and
+    replays of the frontend chunk's graph (``chunk_replays``)."""
     from slam_tpu_torch import pipeline
     from slam_tpu_torch.models import frontend
     from slam_tpu_torch.ops import ba
     from slam_tpu_torch.ops import cuda_kernels as ck
+    from slam_tpu_torch.ops import pose_graph as pg_ops
     from slam_tpu_torch.runtime import graphs
 
     scene, L, R = loop_scene()
     solves, covs = collections.Counter(), collections.Counter()
     spd_solve, cov_system = ba._spd_solve, ba._covariance_system
+    pg_optimize, pg_cov = pg_ops.optimize, pg_ops._covariance_full
     chunk0 = [0]
 
     def counting(S, g):
@@ -186,6 +193,14 @@ def run_path(cfg, required, *, trace=False, plain_ok=(), on_reset=None,
     def counting_covs(*a, **kw):
         covs["systems"] += 1
         return cov_system(*a, **kw)
+
+    def counting_pg(*a, iters=15, **kw):  # called outside any graph
+        covs["pg_iters"] += iters
+        return pg_optimize(*a, iters=iters, **kw)
+
+    def counting_pg_covs(*a, **kw):
+        covs["pg_covs"] += 1
+        return pg_cov(*a, **kw)
 
     def reset():
         ck.reset_counters()
@@ -205,6 +220,7 @@ def run_path(cfg, required, *, trace=False, plain_ok=(), on_reset=None,
 
     graphs.clear()
     ba._spd_solve, ba._covariance_system = counting, counting_covs
+    pg_ops.optimize, pg_ops._covariance_full = counting_pg, counting_pg_covs
     graphs.COUNTERS.extend((solves, covs))
     try:
         # the first call of a key runs eagerly, the second captures it
@@ -224,9 +240,11 @@ def run_path(cfg, required, *, trace=False, plain_ok=(), on_reset=None,
             assert all(traced[k] == launches[k] for k in TRACE_NAMES), (
                 launches, traced, names)
         counted = {"solves": dict(solves), "cov_systems": covs["systems"],
+                   "pg_iters": covs["pg_iters"], "pg_covs": covs["pg_covs"],
                    "chunk_replays": frontend._chunk.replays - chunk0[0]}
     finally:
         ba._spd_solve, ba._covariance_system = spd_solve, cov_system
+        pg_ops.optimize, pg_ops._covariance_full = pg_optimize, pg_cov
         graphs.COUNTERS.remove(solves)
         graphs.COUNTERS.remove(covs)
     report = pipeline.evaluate(res, scene.T_w2c)

@@ -80,8 +80,10 @@ def test_cuda_detector_path(scene, name, monkeypatch):
     (``run_path``'s gates, traced): its kernels launched, counted as the
     trace counts them by device function, no plain version, >= 1
     closure, every ATE under 1 m; B6 once per LM iteration of BA and of
-    loop closure, B7 once per LM iteration and per covariance system,
-    three clock stamps per replay of the frontend chunk's graph. Then
+    loop closure, B7 once per LM iteration and per covariance system, B9's
+    step once per LM iteration of the pose graph and its system once per
+    iteration and per covariance, three clock stamps per replay of the
+    frontend chunk's graph. Then
     its frontend eagerly: B2 twice a chunk (stereo and temporal), B1
     once a chunk at each pyramid level's shape where B1 is the detector,
     no plain version, ATE under 1 m, and chunk 0's descriptors
@@ -93,6 +95,9 @@ def test_cuda_detector_path(scene, name, monkeypatch):
     n_lm = sum(path["solves"].values())
     assert path["launches"]["cholesky_solve"] == n_lm > 0, path["solves"]
     assert path["launches"]["schur_reduce"] == n_lm + path["cov_systems"]
+    assert path["launches"]["pg_step"] == path["pg_iters"] > 0
+    assert path["launches"]["pg_system"] == (path["pg_iters"]
+                                             + path["pg_covs"])
     assert path["chunk_replays"] > 0
     assert path["launches"]["stamp"] == 3 * path["chunk_replays"]
 

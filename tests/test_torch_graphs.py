@@ -794,6 +794,7 @@ def test_no_captured_body_syncs_or_copies_to_the_host():
     assert cuda_kernels.mutual_nearest in seen
     assert cuda_kernels.detect_maps in seen
     assert cuda_kernels.stamp in seen  # the frontend chunk's clock
+    assert cuda_kernels.pg_system in seen and cuda_kernels.pg_step in seen
     # the covariances' inverse and the pose graph's bodies are walked too
     assert ba._marginals in seen and pg_ops._covariance_full in seen
     assert pg_ops.mahalanobis_batched in seen

@@ -620,6 +620,16 @@ def test_cpu_tensors_take_the_plain_versions():
                     ba._slot_table(cam, lm, w, 2, 3), torch.full((1,), 1e-4))
     ck.stamp(torch.zeros(2, dtype=torch.int64), 1)
     ck.sift_octave(x, 0.01)
+    # B9's system and step on a loop of three nodes, node 0 the gauge
+    nodes = torch.eye(4).repeat(3, 1, 1)
+    nodes[1:, 0, 3] = torch.tensor([1.0, 2.1])
+    e_i, e_j = torch.tensor([0, 1, 0]), torch.tensor([1, 2, 2])
+    edges = (e_i, e_j, torch.eye(4).repeat(3, 1, 1),
+             torch.eye(6).repeat(3, 1, 1), torch.ones(3))
+    mask = torch.cat([torch.zeros(6), torch.ones(12)])
+    lam = torch.full((), 1e-4)
+    A, rhs, dscale, cost = ck.pg_system(nodes, *edges, mask, lam)
+    ck.pg_step(nodes, torch.linalg.solve(A, rhs), dscale, cost, lam, *edges)
     assert ck.PLAIN_CALLS == dict.fromkeys(ck.KERNELS, 1)
     assert ck.LAUNCHES == dict.fromkeys(ck.KERNELS, 0)
 
