@@ -10,7 +10,10 @@ reads them), the plain reference on each, and for the seeds of
 ``--control-seeds`` the reference computed with TF32 matmuls and
 convolutions (the precision below the configuration's float32 with TF32
 off) put in the program's place. Prints the compared numbers of both
-per seed, and their largest and smallest over the seeds.
+per seed, and their largest and smallest over the seeds, with each
+sequence's count of BA windows that overflow the capacities. A cell of
+several ranks runs the program over its ranks (``harness/ranked.py``),
+the reference and the control on card 0 while the other ranks wait.
 """
 
 import argparse
@@ -73,51 +76,75 @@ def readings(cell, seeds, control_seeds, save_dir=None,
     geom = cell.config["geometry"]
     calib = np.asarray(geom["calib"], np.float32)
     cfg = runner.program_config(cell)
-    out = {"program": {}, "control": {}, "ate_m": {}}
-    program = None
+    out = {"program": {}, "control": {}, "ate_m": {}, "overflowed": {}}
+    program = group = None
     disk = cell.traffic["input"] == "disk"
     tmp = Path(tempfile.gettempdir()) / "slambench" / "calibrate"
-    for seed in seeds:
-        t0 = time.perf_counter()
-        seqs = traffic.make_sequences(cell.traffic, seed, device,
-                                      hw=tuple(geom["image_hw"]),
-                                      calib=calib)
-        if disk:
-            shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        for seed in seeds:
+            t0 = time.perf_counter()
+            seqs = traffic.make_sequences(cell.traffic, seed, device,
+                                          hw=tuple(geom["image_hw"]),
+                                          calib=calib)
+            if disk:
+                shutil.rmtree(tmp, ignore_errors=True)
+                for s in seqs:
+                    s.paths = pngs.write_sequence(
+                        tmp, f"{s.index:02d}", s.left, s.right, calib,
+                        s.scene.T_w2c)
+            if group is not None:
+                seqs = group.share(seqs)
+            if program is None:
+                if cell.ranks > 1:
+                    from harness import ranked
+
+                    group = program = ranked.Group(cell, runner.Program,
+                                                   calib, device)
+                    seqs = group.start(seqs)
+                else:
+                    program = runner.Program(cfg, calib, device, disk)
+                for _ in range(2):
+                    program(seqs[0])
+            prog, ctrl, ates, over = [], [], [], []
             for s in seqs:
-                s.paths = pngs.write_sequence(tmp, f"{s.index:02d}", s.left,
-                                              s.right, calib, s.scene.T_w2c)
-        if program is None:
-            program = runner.Program(cfg, calib, device, disk)
-            for _ in range(2):
-                program(seqs[0])
-        prog, ctrl, ates = [], [], []
-        for s in seqs:
-            program(s)  # a key this sequence alone may need, captured
-            res = program(s)
-            ates.append(runner.ate(program, res, s))
-            dig = check.digest(res)
-            del res
-            ref = runner.run_reference(cell, s, calib, device)
-            prog.append(check.compare(dig, ref))
-            look(seed, s.index, dig, ref)
-            if save_dir is not None:
-                save(save_dir, seed, s.index, "program", dig)
-                save(save_dir, seed, s.index, "reference", ref)
-            if seed in control_seeds:
-                ctl = runner.run_reference(cell, s, calib, device, True)
-                ctrl.append(check.compare(ctl, ref))
+                program(s)  # a key this sequence alone may need, captured
+                res = program(s)
+                ates.append(runner.ate(program, res, s))
+                dig = check.digest(res)
+                del res
+                st = {}
+                ref = runner.run_reference(cell, s, calib, device, stats=st)
+                over.append(st["overflowed_windows"])
+                prog.append(check.compare(dig, ref))
+                look(seed, s.index, dig, ref)
                 if save_dir is not None:
-                    save(save_dir, seed, s.index, "control", ctl)
-        out["program"][seed] = check.worst(prog)
-        if ctrl:
-            out["control"][seed] = check.worst(ctrl)
-        out["ate_m"][seed] = {k: sum(a[k] for a in ates) / len(ates)
-                              for k in ates[0]}
-        print(json.dumps({"seed": seed, "program": out["program"][seed],
-                          "control": out["control"].get(seed),
-                          "ate_m": out["ate_m"][seed],
-                          "s": time.perf_counter() - t0}), flush=True)
+                    save(save_dir, seed, s.index, "program", dig)
+                    save(save_dir, seed, s.index, "reference", ref)
+                if seed in control_seeds:
+                    ctl = runner.run_reference(cell, s, calib, device, True)
+                    ctrl.append(check.compare(ctl, ref))
+                    if save_dir is not None:
+                        save(save_dir, seed, s.index, "control", ctl)
+            out["program"][seed] = check.worst(prog)
+            if ctrl:
+                out["control"][seed] = check.worst(ctrl)
+            out["ate_m"][seed] = {k: sum(a[k] for a in ates) / len(ates)
+                                  for k in ates[0]}
+            out["overflowed"][seed] = over
+            print(json.dumps({"seed": seed, "program": out["program"][seed],
+                              "control": out["control"].get(seed),
+                              "ate_m": out["ate_m"][seed],
+                              "overflowed_windows": over,
+                              "s": time.perf_counter() - t0}), flush=True)
+    finally:
+        if group is not None:
+            group.close()
+    _summary(out)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _summary(out) -> None:
     for side in ("program", "control"):
         if out[side]:
             print(side, "largest:", json.dumps(check.worst(
@@ -125,8 +152,6 @@ def readings(cell, seeds, control_seeds, save_dir=None,
             print(side, "smallest:", json.dumps(
                 {k: min(d[k] for d in out[side].values())
                  for k in check.NUMBERS}), flush=True)
-    shutil.rmtree(tmp, ignore_errors=True)
-    return out
 
 
 def main() -> int:

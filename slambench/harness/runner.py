@@ -8,7 +8,9 @@ when the last one returned, until ``seconds`` have passed; the last one
 started runs to its end. With ``trace`` the window is followed by one
 more pass over the cell's sequences under torch.profiler, from which the
 device metrics come; the stage metrics come from the window, which no
-profiler slows.
+profiler slows. A cell whose configuration spans several ranks runs the
+same set-up, window, traced pass and comparison over its ranks
+(``ranked.Group``: the program and the cards in one).
 """
 
 from __future__ import annotations
@@ -82,14 +84,15 @@ def settled() -> int:
 
 
 class Program:
-    """The system under test: ``run_pipeline`` on the run's sequences."""
+    """The system under test: ``run_pipeline`` on the run's sequences
+    (with ``mesh``, one rank's share of the mesh's)."""
 
-    def __init__(self, cfg, calib, device, from_disk: bool):
+    def __init__(self, cfg, calib, device, from_disk: bool, mesh=None):
         from slam_tpu_torch import pipeline
 
         self.pipeline = pipeline
         self.cfg, self.calib, self.device = cfg, calib, device
-        self.from_disk = from_disk
+        self.from_disk, self.mesh = from_disk, mesh
 
     def __call__(self, seq: traffic.Sequence):
         if self.from_disk:
@@ -100,7 +103,33 @@ class Program:
                 device=self.device)
         return self.pipeline.run_pipeline(
             seq.left, seq.right, self.calib, self.cfg, run_loop_closure=True,
-            verbose=False, device=self.device)
+            verbose=False, mesh=self.mesh, device=self.device)
+
+
+class OneCard:
+    """The run's card, as ``_run`` asks of it besides the program's calls:
+    graph warm-ups and captures so far, the profiled pass, the ``device``
+    record, and the end of the program's use of the card (``ranked.Group``
+    answers the same over several ranks)."""
+
+    def __init__(self, device):
+        self.device = device
+
+    def settled(self) -> int:
+        return settled()
+
+    def traced_pass(self, program, seqs):
+        return _traced_pass(program, seqs, self.device)
+
+    def record(self, tr) -> dict:
+        import torch
+
+        cuda = str(self.device).startswith("cuda")
+        peak = int(torch.cuda.max_memory_allocated()) if cuda else 0
+        return device_record(self.device, peak, tr)
+
+    def release(self) -> None:
+        pass
 
 
 def _sync(device) -> None:
@@ -143,12 +172,15 @@ def log(*a) -> None:
 def run(cell: spec.Cell, seed: int, seconds: float, traced: bool,
         device: str = "cuda", t_start: float | None = None,
         program_factory=Program, tmp_root: Path | None = None) -> dict:
-    """One run; returns the result line's object."""
+    """One run; returns the result line's object. A cell whose
+    configuration spans several ranks runs as one rank per card, each
+    with ``program_factory``'s program on its share of the mesh."""
     t_start = time.perf_counter() if t_start is None else t_start
     setup_env()
-    import torch
+    # the imports, timed apart from the rendering
+    import torch  # noqa: F401
 
-    from slam_tpu_torch.ops import cuda_kernels
+    from slam_tpu_torch.ops import cuda_kernels  # noqa: F401
 
     geom = cell.config["geometry"]
     hw, calib = tuple(geom["image_hw"]), np.asarray(geom["calib"],
@@ -160,6 +192,17 @@ def run(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     log(f"[setup] {t_imports:.3f} s to import, {time.perf_counter() - t_start:.3f}"
         f" s with {len(seqs)} sequences rendered")
     from_disk = cell.traffic["input"] == "disk"
+    if cell.ranks > 1:
+        from . import ranked
+
+        if from_disk:
+            raise ValueError("a mesh takes its images in memory")
+        with ranked.Group(cell, program_factory, calib, device) as group:
+            seqs = group.start(seqs)
+            log(f"[setup] {time.perf_counter() - t_start:.3f} s with "
+                f"{group.world} ranks joined and the images shared")
+            return _run(cell, seed, seconds, traced, device, t_start, group,
+                        group, seqs, calib)
     tmp = None
     if from_disk:
         base = Path(tmp_root or tempfile.gettempdir())
@@ -171,14 +214,16 @@ def run(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     program = program_factory(cfg, calib, device, from_disk)
     try:
         return _run(cell, seed, seconds, traced, device, t_start, program,
-                    seqs, calib, cuda_kernels, torch)
+                    OneCard(device), seqs, calib)
     finally:
         if tmp is not None:
             shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _run(cell, seed, seconds, traced, device, t_start, program, seqs,
-         calib, cuda_kernels, torch):
+def _run(cell, seed, seconds, traced, device, t_start, program, cards, seqs,
+         calib):
+    import torch
+
     cuda = str(device).startswith("cuda")
     # set-up: the first sequence twice (its graphs' eager runs, then
     # their captures), then passes over all of them until a pass warms up
@@ -189,10 +234,10 @@ def _run(cell, seed, seconds, traced, device, t_start, program, seqs,
         f"sequence warm")
     passes = 0
     for passes in range(1, MAX_WARM_PASSES + 1):
-        before = settled()
+        before = cards.settled()
         for s in seqs:
             program(s)
-        if settled() == before:
+        if cards.settled() == before:
             break
     _sync(device)
     graphs_setup = graph_totals()
@@ -242,9 +287,9 @@ def _run(cell, seed, seconds, traced, device, t_start, program, seqs,
         f"frames in {window_s:.3f} s; graphs in the window "
         f"{graphs_window}")
 
-    tr = _traced_pass(program, seqs, device, cuda_kernels) if traced \
-        else None
-    peak = int(torch.cuda.max_memory_allocated()) if cuda else 0
+    tr = cards.traced_pass(program, seqs) if traced else None
+    dev_record = cards.record(tr)
+    cards.release()
 
     # outside the window: each kept result's ATE per stage against the
     # exact ground truth (earlier lines of the output), then the
@@ -283,7 +328,7 @@ def _run(cell, seed, seconds, traced, device, t_start, program, seqs,
             metrics[m["name"]] = {"value": float(e2e[m["name"]]()),
                                   "unit": m["unit"]}
         result["metrics"] = metrics
-    result["device"] = device_record(device, peak, tr)
+    result["device"] = dev_record
     if tr is not None:
         result["breakdown"] = {"device_ops": trace.top_device_ops(tr),
                                "idle_gaps": trace.idle_gaps(tr)}
@@ -295,17 +340,21 @@ def _run(cell, seed, seconds, traced, device, t_start, program, seqs,
     return result
 
 
-def _traced_pass(program, seqs, device, cuda_kernels):
+def _traced_pass(program, seqs, device):
     """One pass over the sequences under torch.profiler, padded with idle
     host time at both ends (a trace can drop device events at its
     edges); the launches the program counted in it go to the log."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from slam_tpu_torch.ops import cuda_kernels
+
+    acts = [ProfilerActivity.CPU]
+    if str(device).startswith("cuda"):
+        acts.append(ProfilerActivity.CUDA)
     _sync(device)
     before = dict(cuda_kernels.LAUNCHES)
     infos = []
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=acts) as prof:
         time.sleep(0.3)
         for s in seqs:
             with record_function(trace.SEQ_SPAN):
@@ -327,7 +376,8 @@ def _traced_pass(program, seqs, device, cuda_kernels):
 class MetricContext:
     """What a per-layer metric's reader gets: the cell, the window's
     sequences (``records``: frames, wall, the program's stage timings,
-    windows solved) and the profiled pass (``trace``, or None)."""
+    windows solved) and the profiled pass (``trace``, or None; rank 0's in
+    a cell of several ranks)."""
 
     def __init__(self, cell, records, tr):
         self.cell = cell
@@ -373,20 +423,26 @@ def compare_with_reference(cell, seqs, digests, calib, device) -> dict:
     return check.worst(per)
 
 
-def run_reference(cell, seq, calib, device, tf32: bool = False) -> dict:
+def run_reference(cell, seq, calib, device, tf32: bool = False,
+                  stats: dict | None = None) -> dict:
     """The plain reference on one sequence's images; with ``tf32`` its
-    float32 matmuls and convolutions in TF32 (the control)."""
+    float32 matmuls and convolutions in TF32 (the control). ``stats``,
+    when given, gets the reference's count of overflowed BA windows."""
     import torch
 
     import slamref
 
     cfg = reference_config(cell)
+    # a mesh re-solves each capacity-overflowed window at full size
+    full = {"resolve_overflow": True} if cell.ranks > 1 else {}
+    if stats is not None:
+        full["stats"] = stats
     if not tf32:
-        return slamref.run(seq.left, seq.right, calib, cfg, device)
+        return slamref.run(seq.left, seq.right, calib, cfg, device, **full)
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     try:
-        return slamref.run(seq.left, seq.right, calib, cfg, device)
+        return slamref.run(seq.left, seq.right, calib, cfg, device, **full)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

@@ -31,6 +31,17 @@ class Cell:
     end_to_end: list      # BENCHMARK.json's metrics that this cell reports
     per_layer: list
 
+    @property
+    def deployment(self) -> dict:
+        """The configuration's layout over cards (``deployment``): its
+        ``ranks``, one card each with a mesh of one shard per rank, over
+        ``backend``; one process on one card where the file names none."""
+        return self.config.get("deployment", {"ranks": 1})
+
+    @property
+    def ranks(self) -> int:
+        return int(self.deployment["ranks"])
+
 
 def load_benchmark(path: Path = BENCHMARK) -> dict:
     return json.loads(Path(path).read_text())

@@ -83,8 +83,10 @@ def from_profiler(prof) -> Trace:
         end = start + ev.duration_ns() / 1e3
         name = ev.name()
         if ev.device_type() == DeviceType.CUDA:
-            if name.startswith(STAGE) or name.startswith("slambench:"):
-                continue  # user annotations mirrored on the device
+            if name.startswith((STAGE, "slambench:", "nccl:")):
+                # user annotations mirrored on the device (``nccl:`` the
+                # collectives' own, over their kernels)
+                continue
             dev.append(DeviceEvent(name, start, end))
         elif name.startswith(STAGE) or name == SEQ_SPAN:
             spans.append((name, start, end))

@@ -6,7 +6,9 @@ everything that is not plain PyTorch or numpy taken out: the hand-written
 CUDA kernels are their plain versions (``ops/cuda_kernels.py``), no
 function is captured as a CUDA graph (``runtime/graphs.py``), the track
 store chains in numpy, and there is no mesh, stage cache, checkpoint or
-disk path. It imports nothing of the program, so a change to the program
+disk path: where the program's mesh re-solves a capacity-overflowed BA
+window at full size, ``run(resolve_overflow=True)`` does the same by the
+plain LM. It imports nothing of the program, so a change to the program
 cannot change what the program is held to.
 
 ``run`` works every layer out again from the images, the calibration
@@ -28,17 +30,23 @@ from .models.trackstore import TrackStore
 from .ops import precision as _precision  # noqa: F401  (sets the policy)
 
 
-def run(images_left, images_right, calib, cfg: SlamConfig, device) -> dict:
+def run(images_left, images_right, calib, cfg: SlamConfig, device,
+        resolve_overflow: bool = False, stats: dict | None = None) -> dict:
     """Every layer of the pipeline on one sequence: the frontend's
     per-frame extrinsics (with its keypoints and RANSAC's inlier counts),
     the window BA's keyframes and their extrinsics,
     the pose graph's nodes before and after loop closure, and the
-    closures' frame pairs."""
+    closures' frame pairs. With ``resolve_overflow`` each window that
+    overflows BA's capacities is re-solved at its full size, as the
+    program's mesh does (``cfg.bundle.tp_overflow`` on). ``stats``, when
+    given, gets the count of overflowed windows."""
     calib = np.asarray(calib, np.float32)
     fe = frontend_mod.run_frontend(images_left, images_right, calib, cfg,
                                    device=device)
     db = TrackStore.from_frontend(fe)
-    bundles = bundle_mod.run_bundles(db, fe.T_w2c, calib, cfg, device=device)
+    bundles = bundle_mod.run_bundles(
+        db, fe.T_w2c, calib, cfg, device=device,
+        resolve_overflow=resolve_overflow, stats=stats)
     pg = PoseGraph.from_bundles(bundles, device=device)
     pg.optimize()
     pg_pre = pg.copy()

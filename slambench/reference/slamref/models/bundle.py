@@ -12,12 +12,13 @@ Counterpart of ``slam_tpu/models/bundle.py``:
 The host functions (``select_keyframes``, ``build_windows``,
 ``init_landmarks``) are numpy copies of the JAX package's, whose module
 imports JAX. Windows that overflow the capacities are cut to the longest
-tracks; ``build_windows`` also records each one's full problem, which
-``run_bundles`` re-solves at full observation count on the landmark-
-sharded TP mega-bundle (parallel/tp_megabundle.py) when given a mesh. That
-re-solve prunes and weights as a dense window does and evaluates the
-covariances at the optimized landmarks, where the JAX package does
-neither (ROADMAP.md queue C).
+tracks; ``build_windows`` also records each one's full problem. The
+program's mesh path re-solves those at full observation count on its
+landmark-sharded TP mega-bundle; here ``run_bundles`` re-solves them, when
+asked, as dense windows of their full size by the same plain LM
+(``resolve_overflowed``). That re-solve prunes and weights as a dense window
+does and evaluates the covariances at the optimized landmarks, where the
+JAX package does neither (ROADMAP.md queue C).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import torch
 from ..config import BundleConfig, KeyframeConfig, SlamConfig
 from ..ops import ba
 from ..ops.stereo import backproject_np
-from ..parallel.mesh import Mesh, host_gather, stage_device
+from ..parallel.mesh import host_gather, stage_device
 from ..utils import metrics
 from .trackstore import NO_ID, TrackStore
 
@@ -489,61 +490,70 @@ def overflow_problem(spec: dict, batch: BundleBatch, db: TrackStore, calib,
     return poses0, pts0, ci, li, links, w
 
 
-def reoptimize_overflow_tp(res: BundleResult, batch: BundleBatch,
-                           db: TrackStore, calib, cfg: BundleConfig,
-                           mesh: Mesh) -> BundleResult:
-    """Re-solve every capacity-overflowed window at its full observation
-    count on the landmark-sharded TP mega-bundle (parallel/
-    tp_megabundle.py), its landmarks over the mesh's shards (every rank
-    runs this on the same host batch, and gets the same result), and put
-    its poses, rel_T, rel_cov, cost and active observation count in place
-    of the truncated solve's; then re-chain the keyframe trajectory.
-    ``res.points`` keeps the truncated solve's landmarks.
-
-    As a dense window: the depth gate and the Huber weights of
-    ``cfg`` (the JAX package's re-solve has neither), and the
-    covariances at the optimized landmarks and pruned weights (the JAX
-    package's are at the initial landmarks)."""
-    raise NotImplementedError("the reference runs no mesh")
-
-    tp_mesh = mesh.with_axis("tp")
+def resolve_overflowed(res: BundleResult, batch: BundleBatch,
+                       db: TrackStore, calib, cfg: BundleConfig,
+                       device) -> BundleResult:
+    """Re-solve every capacity-overflowed window at its full size, as the
+    program's mesh path does on its TP mega-bundle, here by this module's
+    own plain LM: ``overflow_problem``'s full problem as one dense window
+    of its n poses, all its landmarks and all their observations
+    (``ops.ba.optimize_bundle_pruned``, the depth gate and Huber weights of
+    ``cfg``), then ``ops.ba.pose_covariances`` at the optimized landmarks
+    and pruned weights. Its poses, rel_T, rel_cov, cost and active
+    observation count replace the truncated solve's; the keyframe
+    trajectory is re-chained. ``res.points`` keeps the truncated solve's
+    landmarks. No TP code, no mesh, no collective."""
+    device = torch.device(device)
     for name in ("poses", "rel_T", "rel_cov", "cost", "num_obs"):
         setattr(res, name, np.array(getattr(res, name)))
+    calib_t = torch.as_tensor(np.asarray(calib, np.float32), device=device)
+
+    def one(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype,
+                               device=device)[None]
+
     for spec in batch.overflow:
         bi, n = spec["bi"], int(batch.n_poses[spec["bi"]])
         poses0, pts0, ci, li, links, w = overflow_problem(spec, batch, db,
                                                           calib, cfg)
-        parts = tp.partition_megabundle(pts0, ci, li, links, w, mesh.size)
-        poses, X_sh, w_sh, cost = tp.optimize_megabundle_pruned(
-            tp_mesh, poses0, *parts, calib, iters=cfg.lm_iters,
-            min_depth=cfg.min_depth, max_depth=cfg.max_depth,
-            huber_delta=cfg.huber_delta_px)
-        covs = tp.megabundle_pose_covariances(
-            tp_mesh, poses, X_sh, parts[1], parts[2], parts[3], w_sh, calib)
+        ci_t, li_t = one(ci, torch.int64), one(li, torch.int64)
+        poses, points, w2, cost = ba.optimize_bundle_pruned(
+            one(poses0), one(pts0), ci_t, li_t, one(links), one(w), calib_t,
+            iters=cfg.lm_iters, min_depth=cfg.min_depth,
+            max_depth=cfg.max_depth, huber_delta=cfg.huber_delta_px)
+        covs = ba.pose_covariances(poses, points, ci_t, li_t, one(links), w2,
+                                   calib_t)
+        poses = poses[0].cpu().numpy()
         res.poses[bi, :n] = poses
         res.rel_T[bi] = poses[n - 1]
-        res.rel_cov[bi] = covs[n - 1]
-        res.cost[bi] = cost
-        res.num_obs[bi] = int((w_sh > 0).sum())
+        res.rel_cov[bi] = covs[0, n - 1].cpu().numpy()
+        res.cost[bi] = float(cost[0])
+        res.num_obs[bi] = int((w2 > 0).sum())
     res.T_w2c_keyframes = _chain(res.rel_T)
     return res
 
 
 def run_bundles(db: TrackStore, T_w2c: np.ndarray, calib,
                 cfg: SlamConfig = SlamConfig(), mesh=None,
-                device=None) -> BundleResult:
+                device=None, resolve_overflow: bool = False,
+                stats: dict | None = None) -> BundleResult:
     """Keyframes -> windows -> batched LM on ``device`` (the card unless
     the caller names the CPU), or with ``mesh`` every window in one batch
-    on the mesh's device, and then, with ``cfg.bundle.tp_overflow``, every
-    capacity-overflowed window re-solved at full size on the TP
-    mega-bundle."""
+    on the mesh's device. With ``resolve_overflow`` and
+    ``cfg.bundle.tp_overflow``, every capacity-overflowed window is then
+    re-solved at full size (:func:`resolve_overflowed`: what the
+    program's mesh path computes). ``stats``, when given, gets the count of
+    overflowed windows (``overflowed_windows``)."""
     kfs = select_keyframes(db, T_w2c, cfg.keyframes)
     batch = build_windows(db, T_w2c, kfs, cfg.bundle)
     init_landmarks(batch, calib)
     res = optimize_windows(batch, calib, cfg.bundle, mesh=mesh,
                            device=device)
-    if batch.overflow and mesh is not None and cfg.bundle.tp_overflow:
-        res = reoptimize_overflow_tp(res, batch, db, calib, cfg.bundle, mesh)
+    if stats is not None:
+        stats["overflowed_windows"] = len(batch.overflow)
+    if batch.overflow and resolve_overflow and cfg.bundle.tp_overflow:
+        res = resolve_overflowed(res, batch, db, calib, cfg.bundle,
+                               stage_device(mesh, device))
     return res
 
 

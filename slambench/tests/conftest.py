@@ -22,13 +22,14 @@ TINY = {"hw": [120, 400], "frames": 48, "landmarks": 3000, "radius": 10.0,
         "max_kp": 512, "min_inliers": 40}
 
 
-@pytest.fixture
-def tiny_cell():
-    """harris.loop80's cell cut to the CPU: one sequence (``TINY``), its
-    limits as they stand."""
+def tiny(name: str = "harris.loop80", frames: int = TINY["frames"],
+         ranks: int = 1):
+    """Cell ``name`` cut to the CPU: one sequence of ``frames`` frames
+    (``TINY``), its limits as they stand; with ``ranks`` > 1 its
+    configuration spread over that many ranks (gloo ranks of the CPU)."""
     from harness import spec
 
-    cell = spec.load_cell("harris.loop80")
+    cell = spec.load_cell(name)
     H, W = TINY["hw"]
     sx, sy = W / 1241, H / 376
     settings = json.loads(json.dumps(cell.config["settings"]))
@@ -38,9 +39,18 @@ def tiny_cell():
         "image_hw": [H, W],
         "calib": [718.856 * sx, 718.856 * sy, 607.1928 * sx, 185.2157 * sy,
                   0.5372]})
+    if ranks > 1:
+        cell.config["deployment"] = {"ranks": ranks, "backend": "nccl"}
     cell.traffic = {"sequences_per_seed": 1, "input": "memory",
                     "scene": {"trajectory": "loop",
-                              "num_frames": TINY["frames"],
+                              "num_frames": frames,
                               "num_landmarks": TINY["landmarks"],
                               "loop_radius": TINY["radius"]}}
     return cell
+
+
+@pytest.fixture
+def tiny_cell():
+    """harris.loop80's cell cut to the CPU: one sequence (``TINY``), its
+    limits as they stand."""
+    return tiny()

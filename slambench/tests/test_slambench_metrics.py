@@ -128,3 +128,42 @@ def test_roofline_b6_against_chip_smoke():
     tr.seq_spans = [(50, 200)]  # the window launch outside every span
     assert runner.load_metric("roofline_pct.b6_cholesky_solve").read(
         _ctx(tr=tr)) is None
+
+
+class _Ev:
+    def __init__(self, name, start_us, dur_us, cuda):
+        self._n, self._s, self._d, self._c = name, start_us, dur_us, cuda
+
+    def name(self):
+        return self._n
+
+    def start_ns(self):
+        return int(self._s * 1e3)
+
+    def duration_ns(self):
+        return int(self._d * 1e3)
+
+    def device_type(self):
+        from torch.autograd import DeviceType
+
+        return DeviceType.CUDA if self._c else DeviceType.CPU
+
+
+def test_trace_leaves_out_annotations_mirrored_on_the_device():
+    """The profiler mirrors the host's annotations, and each collective's
+    own ``nccl:`` one, on the device timeline over the kernels they hold:
+    they are not device work."""
+    from types import SimpleNamespace
+
+    evs = [_Ev(trace.SEQ_SPAN, 0, 100, False),
+           _Ev(trace.SEQ_SPAN, 0, 100, True),
+           _Ev("stage:bundles", 5, 50, True),
+           _Ev("nccl:all_reduce", 10, 40, True),
+           _Ev("ncclDevKernel_AllReduce_Sum_f64_RING_LL(x)", 12, 30, True),
+           _Ev("void k(...)", 60, 10, True)]
+    prof = SimpleNamespace(profiler=SimpleNamespace(
+        kineto_results=SimpleNamespace(events=lambda: evs)))
+    tr = trace.from_profiler(prof)
+    assert [e.name for e in tr.device] == [
+        "ncclDevKernel_AllReduce_Sum_f64_RING_LL(x)", "void k(...)"]
+    assert tr.busy_s() == pytest.approx(40e-6)

@@ -89,9 +89,11 @@ def test_kitti00_settings():
 def test_cell_resolves(cell):
     w = next(x for x in BENCH["workloads"] if x["name"] == cell)
     assert set(w) == {"name", "config", "traffic", "chips", "why"}
-    assert w["chips"] == 1
     assert _one_line(w["why"])
     c = spec.load_cell(cell)
+    # one card, or four where the configuration runs four ranks: the
+    # cell takes a card per rank
+    assert (w["chips"], c.ranks) in ((1, 1), (4, 4))
     assert c.traffic["input"] in ("memory", "disk")
     assert c.limits and set(c.limits) <= set(runner.check.NUMBERS)
     e2e = {m["name"] for m in c.end_to_end}
@@ -128,3 +130,26 @@ def test_metrics_entries():
     assert set(layers) == {"frontend", "track store", "window BA",
                            "pose graph and loop closure", "kernels",
                            "device"}
+
+
+def test_four_chip_cells_are_few():
+    """At most a quarter of the cells, rounded down, or one, take four
+    cards."""
+    cells = BENCH["workloads"]
+    four = [w["name"] for w in cells if w["chips"] == 4]
+    assert len(four) <= max(1, len(cells) // 4), four
+    assert all(w["chips"] in (1, 4) for w in cells)
+
+
+@pytest.mark.parametrize("conf", [c["name"] for c in BENCH["configs"]])
+def test_deployment(conf):
+    """A configuration's ``deployment``: one process on one card where it
+    names none; else 1 or 4 ranks over nccl, and nothing more."""
+    c = next(x for x in BENCH["configs"] if x["name"] == conf)
+    body = json.loads((spec.ROOT / c["file"]).read_text())
+    d = body.get("deployment", {"ranks": 1})
+    assert isinstance(d["ranks"], int) and d["ranks"] in (1, 4)
+    if d["ranks"] > 1:
+        assert d == {"ranks": d["ranks"], "backend": "nccl"}
+    else:
+        assert d == {"ranks": 1}
